@@ -9,19 +9,22 @@ Phases, each of which fails the run when its check fails:
 1. device and power limit; build every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` (``nvcc``, sm_90a);
 2. each kernel against its plain PyTorch version on the card at edge shapes
-   (the ``SHAPES`` of ``tests/test_kernels.py``, both metrics, random Dfloat
-   layouts);
+   (``repro_torch.kernels.check``: the ``SHAPES`` of ``tests/test_kernels.py``
+   and two with seg % 4 != 0, both metrics, random Dfloat layouts);
 3. the main path: synthetic data of the SIFT1M shape, ``Index.build`` on the
    card, ``save`` / ``load``, then ``searcher("local")`` over all queries as
    one batch (a warm-up call and three timed calls) with ``storage="f32"``
-   and ``storage="packed"``.  Every kernel's launch count is
-   reset just before and read just after; each must be > 0, packed ids must
-   equal f32 ids, recall@10 must reach 0.80;
+   and ``storage="packed"``.  The launch counts are reset just before each
+   storage's search and read just after it: the f32 search must launch
+   ``fee_distance``, the packed search ``fee_distance_packed`` and
+   ``dfloat_unpack``.  Packed ids must equal f32 ids, recall@10 must reach
+   0.80;
 4. the plain path (``fee_backend="jnp"``) on 256 queries: mean id overlap@10
    with the kernel path >= 0.99;
 5. each kernel against its plain version at the main path's shapes, timed
    with CUDA events beside its bound (bytes over 3.35 TB/s, operations over
-   67 TFLOP/s float32);
+   67 TFLOP/s float32), and the f32 kernel's float4 loads against its
+   one-float loads;
 6. ``torch.profiler`` over one f32 search batch: device-busy time against
    the batch's wall time, and the costliest kernels.
 
@@ -49,10 +52,9 @@ BUILD = ROOT / "build"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS = 67e12                  # H100 SXM float32 outside the tensor cores
-RTOL, ATOL = 3e-5, 2e-4            # distance tolerance (summation order)
 REPEATS = 3                        # timed search calls, each over every query
+SLEEP_CYCLES = 100_000_000         # ~50 ms at the H100's clocks: time to queue a timed run
 PORT_KERNELS = ("fee_f32_kernel", "fee_packed_kernel", "dfloat_unpack_kernel")
-SHAPES = [(7, 32, 8), (100, 128, 16), (129, 128, 16), (64, 960, 32), (256, 64, 16)]
 REPLACES = {
     "fee_distance": "src/repro/kernels/fee_distance.py:106",
     "fee_distance_packed": "src/repro/kernels/fee_distance.py:465",
@@ -83,33 +85,6 @@ def check(cond, msg):
 # ---------------------------------------------------------------------------
 
 
-def near_threshold(x64, q64, thr, alpha, beta, margin, seg, metric):
-    """(Q, L) lanes whose float64 estimate at some exit checkpoint lies
-    within the distance tolerance of their query's threshold."""
-    per = (x64 - q64[:, None, :]) ** 2 if metric == "l2" else -(x64 * q64[:, None, :])
-    q, l, d = x64.shape
-    cum = per.reshape(q, l, d // seg, seg).sum(-1).cumsum(-1)
-    est = alpha.double() * cum / beta.double() - margin.double()
-    t = thr.double()[:, None, None]
-    return ((est[..., :-1] - t).abs() <= ATOL + RTOL * t.abs()).any(-1)
-
-
-def compare_fee(got, want, near, what):
-    """Exit flags and segs_used equal except on near-threshold lanes;
-    distances within tolerance where they agree.  Returns (max |dist err|,
-    lanes whose exit differs, near-threshold lanes)."""
-    dist, rej, segs = got
-    wd, wr, ws = want
-    same = (rej == wr) & (segs == ws)
-    bad = int((~same & ~near).sum())
-    check(bad == 0, f"{what}: {bad} lanes disagree on exits away from the threshold")
-    err = (dist[same] - wd[same]).abs()
-    tol = ATOL + RTOL * wd[same].abs()
-    check(bool((err <= tol).all()), f"{what}: distance beyond tolerance "
-          f"(max err {float(err.max()):.3g})")
-    return float(err.max()) if err.numel() else 0.0, int((~same).sum()), int(near.sum())
-
-
 def fee_inputs(db, ids, q, dev, metric, seg, seed):
     """Per-segment alpha/beta/margin and per-query thresholds at the median
     candidate score, so about half the lanes exit early."""
@@ -131,10 +106,11 @@ def edge_shape_checks(dev):
     from repro_torch.kernels import dfloat_unpack as unpack_kernel
     from repro_torch.kernels import fee_distance as fee_kernel
     from repro_torch.kernels import ref
+    from repro_torch.kernels.check import SCALAR_SHAPES, SHAPES, compare_fee, near_threshold
 
     rng = np.random.default_rng(0)
     n_cases = 0
-    for c, d, seg in SHAPES:
+    for c, d, seg in SHAPES + SCALAR_SHAPES:
         for metric in ("l2", "ip"):
             x_np = rng.standard_normal((c, d)).astype(np.float32)
             xt = torch.from_numpy(x_np).to(dev)
@@ -145,8 +121,8 @@ def edge_shape_checks(dev):
             mask = torch.from_numpy(rng.random((n_q, c)) < 0.8).to(dev)
             args = (ids, q, thr, alpha, beta, margin)
             kw = dict(seg=seg, metric=metric, lane_mask=mask)
-            near = near_threshold(xt[ids.long()].double(), q.double(), thr, alpha,
-                                  beta, margin, seg, metric)
+            near = near_threshold(xt[ids.long()], q, thr, alpha, beta, margin,
+                                  seg=seg, metric=metric)
             got = fee_kernel.fee_distance(xt, *args, **kw)
             want = ref.fee_distance_gather_ref(xt, *args, **kw)
             _, diff, n_near = compare_fee(got, want, near, f"fee_distance {c}x{d}/{seg} {metric}")
@@ -164,8 +140,8 @@ def edge_shape_checks(dev):
                               ref.dfloat_unpack_ref(packed, cfg).view(torch.int32)),
                   f"dfloat_unpack {c}x{d} {runs}: not bit-exact")
             pk = fee_kernel.fee_distance_packed(packed, *args, dfloat_cfg=cfg, **kw)
-            near_q = near_threshold(xq[ids.long()].double(), q.double(), thr, alpha,
-                                    beta, margin, seg, metric)
+            near_q = near_threshold(xq[ids.long()], q, thr, alpha, beta, margin,
+                                    seg=seg, metric=metric)
             pw = ref.fee_distance_packed_gather_ref(packed, *args, dfloat_cfg=cfg, **kw)
             compare_fee(pk, pw, near_q, f"fee_distance_packed {c}x{d}/{seg} {metric}")
             f32 = fee_kernel.fee_distance(xq, *args, **kw)
@@ -185,9 +161,16 @@ def edge_shape_checks(dev):
 
 
 def time_ms(fn, reps=20, warmup=3):
+    """Device milliseconds per call: CUDA events around ``reps`` calls.  A
+    sleep kernel first holds the device while the host queues every call, so
+    the events see the device's time, not the host's launch pace (a call's
+    checks and ctypes launch can take longer on the host than its kernel on
+    the device)."""
     for _ in range(warmup):
         fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -211,6 +194,7 @@ def main_path_kernels(index, db, res64, dev, launches):
     from repro_torch.kernels import dfloat_unpack as unpack_kernel
     from repro_torch.kernels import fee_distance as fee_kernel
     from repro_torch.kernels import ref
+    from repro_torch.kernels.check import compare_fee, near_threshold
 
     cfg, seg, metric = index.dfloat_cfg, index.seg, index.metric
     x = index.device_db(True, "f32", dev)
@@ -226,8 +210,8 @@ def main_path_kernels(index, db, res64, dev, launches):
     d, s = x.shape[1], x.shape[1] // seg
     args = (ids, q, thr, fee.alpha, fee.beta, fee.margin)
     kw = dict(seg=seg, metric=metric, lane_mask=mask)
-    near = near_threshold(x[ids.long()].double(), q.double(), thr, fee.alpha,
-                          fee.beta, fee.margin, seg, metric)
+    near = near_threshold(x[ids.long()], q, thr, fee.alpha, fee.beta, fee.margin,
+                          seg=seg, metric=metric)
     rows = []
 
     # bytes every FEE call moves besides the rows: ids, mask, queries,
@@ -251,6 +235,18 @@ def main_path_kernels(index, db, res64, dev, launches):
     log(f"fee_distance at Q={n_q} L={lanes} D={d} seg={seg}: exit flips {flips}, "
         f"near-threshold lanes {n_near}, mean segs_used "
         f"{float(segs_used.float().mean()):.3f} of {s}")
+    # the same launch through the one-float loads: a query buffer 4 bytes off
+    # 16-byte alignment turns the float4 loads off
+    q_off = torch.empty(q.numel() + 1, device=dev)[1:].view_as(q).copy_(q)
+    args_off = (ids, q_off, *args[2:])
+    got_s = fee_kernel.fee_distance(x, *args_off, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got_s, got)),
+          "fee_distance one-float loads: not bit-identical to float4 loads")
+    loads = {"float4_ms": [], "one_float_ms": []}
+    for key in ("float4_ms", "one_float_ms", "one_float_ms", "float4_ms"):   # in turns
+        lane_args = args if key == "float4_ms" else args_off
+        loads[key].append(time_ms(lambda: fee_kernel.fee_distance(x, *lane_args, **kw)))
+    log(json.dumps({"fee_distance_loads": loads}))
 
     got_p = fee_kernel.fee_distance_packed(xp, *args, dfloat_cfg=cfg, **kw)
     check(all(torch.equal(a, b) for a, b in zip(got_p, got)),
@@ -332,6 +328,9 @@ def report(storage, res, secs, db, k):
 
 
 def main_path(args, dev, kernels):
+    """Build, save, load and search; returns the loaded index, the data, a
+    k=64 result for the kernels' main-path inputs, each kernel's launches in
+    the search of its storage, and the two storages' reports."""
     from repro_torch.data.synthetic import DATASETS, make_dataset
     from repro_torch.index import Index, IndexSpec, SearchParams
 
@@ -346,8 +345,6 @@ def main_path(args, dev, kernels):
     log(f"data: {db.n} x {db.dim} {db.metric}, {len(db.queries)} queries, "
         f"{t['data_s']:.1f} s")
 
-    for fn in kernels.values():               # count the main path's launches only
-        fn.launches = 0
     t0 = time.perf_counter()
     built = Index.build(db, IndexSpec(m=16, dfloat_recall_target=0.9, dfloat_proxy=True),
                         device=dev)
@@ -370,14 +367,21 @@ def main_path(args, dev, kernels):
     del built
     log(f"save {t['save_s']:.1f} s, load {t['load_s']:.1f} s")
 
-    params = SearchParams(ef=64, k=10)
-    res_f, secs_f = run_search(index, db, params, dev)
-    res_p, secs_p = run_search(index, db, dataclasses.replace(params, storage="packed"), dev)
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    log(json.dumps({"launches": launches}))
+    # each storage's search carries its own launch counts
+    launches = {}
+    runs = {}
+    for storage, path_kernels in (("f32", ("fee_distance",)),
+                                  ("packed", ("fee_distance_packed", "dfloat_unpack"))):
+        for fn in kernels.values():
+            fn.launches = 0
+        runs[storage] = run_search(index, db, SearchParams(ef=64, k=10, storage=storage), dev)
+        counts = {name: fn.launches for name, fn in kernels.items()}
+        log(json.dumps({"launches": {"storage": storage, **counts}}))
+        for name in path_kernels:
+            check(counts[name] > 0, f"kernel {name} was not launched by the {storage} search")
+            launches[name] = counts[name]
+    (res_f, secs_f), (res_p, secs_p) = runs["f32"], runs["packed"]
     rep = [report("f32", res_f, secs_f, db, 10), report("packed", res_p, secs_p, db, 10)]
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
     check(np.array_equal(res_p.ids, res_f.ids), "packed ids differ from f32 ids")
     check(rep[0]["recall_at_10"] >= 0.80,
           f"recall@10 {rep[0]['recall_at_10']:.4f} < 0.80")

@@ -18,6 +18,8 @@ import dataclasses
 
 import torch
 
+from repro_torch import resolve_device
+
 BIG = 3.0e38
 
 
@@ -38,9 +40,9 @@ class FeeParams:
         return self.alpha.shape[0]
 
     @classmethod
-    def identity(cls, n_seg: int, device="cpu") -> "FeeParams":
+    def identity(cls, n_seg: int, device="cuda") -> "FeeParams":
         """alpha=beta=1, margin=0: plain d_part early exit (no estimation)."""
-        ones = torch.ones(n_seg, dtype=torch.float32, device=device)
+        ones = torch.ones(n_seg, dtype=torch.float32, device=resolve_device(device))
         return cls(alpha=ones, beta=ones.clone(), margin=torch.zeros_like(ones))
 
     @classmethod

@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.utils import cached_npz
 
 
@@ -104,7 +105,8 @@ def _add_long_edges(adj: np.ndarray, rng, n_long: int) -> np.ndarray:
 def build_graph(vectors: np.ndarray, m: int = 16, metric: str = "l2",
                 prune: bool = True, upper_branch: int = 24,
                 cache_key: str | None = None, seed: int = 0,
-                long_edges: int | None = None, device="cpu") -> GraphIndex:
+                long_edges: int | None = None, device="cuda") -> GraphIndex:
+    device = resolve_device(device)
     n_long = max(2, m // 4) if long_edges is None else long_edges
 
     def _build():

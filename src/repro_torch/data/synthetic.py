@@ -8,7 +8,8 @@ spectrum decay (drives alpha_k / FEE effectiveness), cluster structure
 Unlike the JAX package, the per-dataset seed offset is a stable hash of the
 name (``zlib.crc32``), so the same ``seed`` gives the same data in every
 process.  Ground truth is computed on ``device`` (a (10k x 1M) score matrix
-does not fit a host).
+does not fit a host): the card by default, the host only when the caller
+passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.utils import cached_npz
 
 
@@ -69,7 +71,8 @@ DATASETS = {
 }
 
 
-def _generate(spec: DatasetSpec, seed: int = 0, device="cpu") -> dict:
+def _generate(spec: DatasetSpec, seed: int = 0, device="cuda") -> dict:
+    device = resolve_device(device)
     rng = np.random.default_rng(seed + zlib.crc32(spec.name.encode()) % (2**31))
     d, n = spec.dim, spec.n
     lam = np.arange(1, d + 1, dtype=np.float64) ** (-spec.spectrum_decay)
@@ -98,7 +101,7 @@ def _generate(spec: DatasetSpec, seed: int = 0, device="cpu") -> dict:
     return dict(vectors=vectors, queries=queries, gt=gt.astype(np.int32))
 
 
-def exact_topk(db, queries, k: int, metric: str, device="cpu",
+def exact_topk(db, queries, k: int, metric: str, device="cuda",
                block_bytes: int = 1 << 30) -> np.ndarray:
     """Blocked exact kNN (the recall ground-truth oracle) on ``device``.
 
@@ -107,6 +110,7 @@ def exact_topk(db, queries, k: int, metric: str, device="cpu",
     use the JAX package's formula ``|q|^2 + |x|^2 - 2 q.x`` (ip: ``-q.x``).
     Returns (Q, k) int64 ids, nearest first.
     """
+    device = resolve_device(device)
     db = torch.as_tensor(db, device=device)
     queries = torch.as_tensor(queries, device=device)
     n = db.shape[0]
@@ -124,10 +128,12 @@ def exact_topk(db, queries, k: int, metric: str, device="cpu",
     return torch.cat(out).cpu().numpy()
 
 
-def make_dataset(name: str | DatasetSpec, seed: int = 0, device="cpu",
+def make_dataset(name: str | DatasetSpec, seed: int = 0, device="cuda",
                  cache: bool = True) -> VecDB:
     """The dataset ``name`` (a key of :data:`DATASETS`, or a spec), cached
-    under ``.cache/`` unless ``cache=False``."""
+    under ``.cache/`` unless ``cache=False``; its ground truth is computed on
+    ``device``."""
+    device = resolve_device(device)
     spec = DATASETS[name] if isinstance(name, str) else name
     build = lambda: _generate(spec, seed, device)
     data = (cached_npz(f"torch/dataset/{spec.name}/v1/{seed}/{spec}", build)

@@ -53,11 +53,9 @@ def _descent_rows(index, params: SearchParams, vectors: torch.Tensor):
 
 def local_searcher(index, params: SearchParams, *, device, fee=None):
     """Single-device searcher; the DB/adjacency device tensors come from the
-    index-level cache, so searchers for different params share one copy."""
-    if params.storage == "tiered":
-        raise NotImplementedError(
-            'storage="tiered" needs the tiered FEE kernel, not ported to CUDA '
-            "yet: see ROADMAP.md queue A, item 5 and queue B, item 5")
+    index-level cache, so searchers for different params share one copy.
+    Paths not ported yet (tiered storage, the skip-DMA kernels) raise in
+    ``core.search.make_searcher``."""
     cfg = params.to_config(index.metric, index.seg)
     vectors = index.device_db(params.use_dfloat, params.storage, device)
     fee_params = None

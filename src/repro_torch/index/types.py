@@ -13,6 +13,7 @@ from typing import Any
 
 import numpy as np
 
+from repro_torch import resolve_device
 from repro_torch.core.fee import FeeParams
 from repro_torch.core.search import SearchConfig
 from repro_torch.data.synthetic import recall_at_k
@@ -154,7 +155,8 @@ class FeeFit:
                     var_k=self.var_k, seg=self.seg, p_target=self.p_target,
                     metric=self.metric)
 
-    def params(self, device="cpu") -> FeeParams:
+    def params(self, device="cuda") -> FeeParams:
         """Device view: the FeeParams tensors the searchers use."""
         return FeeParams.coerce(dict(alpha=self.alpha, beta=self.beta,
-                                     margin=self.margin), device=device)
+                                     margin=self.margin),
+                                device=resolve_device(device))

@@ -27,14 +27,13 @@ struct F32Row {
   }
 };
 
+// Packed rows are read one field at a time (fields are not word-aligned, so
+// there is no wider load to take).
 struct PackedRow {
   const uint32_t* p;
   const int4* table;  // per-feature decode table, in shared memory
   __device__ __forceinline__ float load1(int f) const {
     return naszip::decode_feature(p, table[f]);
-  }
-  __device__ __forceinline__ float4 load4(int f) const {
-    return make_float4(load1(f), load1(f + 1), load1(f + 2), load1(f + 3));
   }
 };
 
@@ -67,7 +66,6 @@ __global__ void fee_f32_kernel(const float* __restrict__ db, long long n_rows, i
   }
 }
 
-template <bool VEC>
 __global__ void fee_packed_kernel(const uint32_t* __restrict__ xp, long long n_rows,
                                   int words, int dim, const int4* __restrict__ table,
                                   const int* __restrict__ ids,
@@ -84,7 +82,7 @@ __global__ void fee_packed_kernel(const uint32_t* __restrict__ xp, long long n_r
   const long long qi = g / lanes;
   int id;
   if (lane_live(ids, alive, g, n_rows, &id)) {
-    naszip::fee_lane<VEC>(PackedRow{xp + id * static_cast<long long>(words), tab},
+    naszip::fee_lane<false>(PackedRow{xp + id * static_cast<long long>(words), tab},
                           q + qi * dim, __ldg(thr + qi), a, dist + g, rejected + g,
                           segs_used + g);
   } else {
@@ -96,7 +94,9 @@ __global__ void fee_packed_kernel(const uint32_t* __restrict__ xp, long long n_r
 
 constexpr int kThreads = 256;
 
-// float4 reads need seg % 4 == 0 and 16-byte aligned rows of a dim % 4 == 0 matrix
+// The f32 kernel reads rows and queries as float4 where it can: that needs
+// seg % 4 == 0 and 16-byte aligned rows of a dim % 4 == 0 matrix.  Both
+// variants add the same values in the same order.
 bool vec_ok(int seg, int dim, const void* base) {
   return seg % 4 == 0 && dim % 4 == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0;
 }
@@ -164,16 +164,9 @@ int naszip_fee_distance_packed(const void* xp, long long n_rows, int words, int 
   float* dist_f = static_cast<float*>(dist);
   uint8_t* rej_b = static_cast<uint8_t*>(rejected);
   int* segs_i = static_cast<int*>(segs_used);
-  if (vec_ok(seg, dim, q)) {
-    fee_packed_kernel<true><<<grid, kThreads, smem, s>>>(xp_w, n_rows, words, dim, tab, ids_i,
-                                                         alive_b, q_f, thr_f, a, n_total,
-                                                         lanes, dist_f, rej_b, segs_i);
-  } else {
-    fee_packed_kernel<false><<<grid, kThreads, smem, s>>>(xp_w, n_rows, words, dim, tab,
-                                                          ids_i, alive_b, q_f, thr_f, a,
-                                                          n_total, lanes, dist_f, rej_b,
-                                                          segs_i);
-  }
+  fee_packed_kernel<<<grid, kThreads, smem, s>>>(xp_w, n_rows, words, dim, tab, ids_i, alive_b,
+                                                 q_f, thr_f, a, n_total, lanes, dist_f, rej_b,
+                                                 segs_i);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -46,12 +46,13 @@ __device__ __forceinline__ float fee_term(float x, float y, float part, int ip) 
 }
 
 // Segment s's partial score: a sequential sum over its features, read four at
-// a time when VEC (seg % 4 == 0 and 16-byte aligned rows and queries).
+// a time when VEC (seg % 4 == 0 and 16-byte aligned rows and queries; only
+// rows with a load4 take it).
 template <bool VEC, class Row>
 __device__ __forceinline__ float seg_part(const Row& row, const float* q, int f0,
                                           const FeeArgs& a) {
   float part = 0.0f;
-  if (VEC) {
+  if constexpr (VEC) {
     for (int f = f0; f < f0 + a.seg; f += 4) {
       const float4 x = row.load4(f);
       const float4 y = __ldg(reinterpret_cast<const float4*>(q + f));

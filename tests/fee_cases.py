@@ -1,15 +1,7 @@
-"""Shared inputs and checks for the FEE kernel tests (numpy only, so the
-tests that run on a card need no JAX).
-
-Tolerance: the implementations sum each segment's distance in different
-orders, so distances are held to rtol 3e-5 / atol 2e-4, and exit flags /
-``segs_used`` must be exact except for lanes whose estimate lies within that
-tolerance of the threshold.
-"""
+"""Numpy inputs for the FEE kernel tests (no JAX, so the tests that run on a
+card can use them).  The shapes, the tolerance and the comparison are the
+port's own: ``repro_torch.kernels.check``."""
 import numpy as np
-
-SHAPES = [(7, 32, 8), (100, 128, 16), (129, 128, 16), (64, 960, 32), (256, 64, 16)]
-RTOL, ATOL = 3e-5, 2e-4
 
 
 def inputs(c, d, seg, metric, seed):
@@ -27,22 +19,3 @@ def inputs(c, d, seg, metric, seed):
 def threshold(q, x, metric):
     return np.float32(np.median(((x - q) ** 2).sum(1)) if metric == "l2"
                       else -np.median(x @ q))
-
-
-def near_threshold(q, x, thr, alpha, beta, margin, seg, metric):
-    """Lanes whose float64 estimate at some exit checkpoint lies within the
-    distance tolerance of the threshold (their exit may legitimately flip)."""
-    c, d = x.shape
-    x64, q64 = x.astype(np.float64), q.astype(np.float64)
-    per = ((x64 - q64) ** 2 if metric == "l2" else -(x64 * q64))
-    cum = per.reshape(c, d // seg, seg).sum(-1).cumsum(1)
-    est = alpha * cum / beta - margin
-    return (np.abs(est[:, :-1] - thr) <= ATOL + RTOL * abs(thr)).any(1)
-
-
-def assert_fee_matches(got, want, near):
-    dist, rej, segs = (np.asarray(t).reshape(-1) for t in got)
-    wd, wr, ws = (np.asarray(t).reshape(-1) for t in want)
-    same = (rej == wr) & (segs == ws)
-    assert same[~near].all(), f"{(~same & ~near).sum()} lanes disagree on exits"
-    np.testing.assert_allclose(dist[same], wd[same], rtol=RTOL, atol=ATOL)

@@ -3,18 +3,20 @@
 These need an NVIDIA GPU and ``nvcc`` (the kernels are built at first use);
 without a card they skip.  The file imports no JAX, so it runs on the machine
 with the card:  ``python -m pytest -m cuda tests/test_torch_cuda.py``.
-Tolerance as in ``fee_cases.py``; the decode and packed-vs-f32 scores are
-bit-exact.
+Tolerance as in ``repro_torch.kernels.check``; the decode and packed-vs-f32
+scores are bit-exact.  ``SCALAR_SHAPES`` (seg % 4 != 0) run the f32 kernel's
+one-float-at-a-time loads, every other shape its float4 loads.
 """
 import numpy as np
 import pytest
 import torch
 
-from fee_cases import SHAPES, assert_fee_matches, inputs, near_threshold
+from fee_cases import inputs
 from repro_torch.core import dfloat as dfl
 from repro_torch.kernels import dfloat_unpack as unpack_kernel
 from repro_torch.kernels import fee_distance as fee_kernel
 from repro_torch.kernels import ref
+from repro_torch.kernels.check import SCALAR_SHAPES, SHAPES, compare_fee, near_threshold
 
 
 @pytest.fixture
@@ -25,7 +27,7 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,d,seg", SHAPES)
+@pytest.mark.parametrize("c,d,seg", SHAPES + SCALAR_SHAPES)
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_cuda_fee_kernels_match_plain(cuda, c, d, seg, metric):
     q, x, thr, alpha, beta, margin = inputs(c, d, seg, metric, c + d)
@@ -40,11 +42,8 @@ def test_cuda_fee_kernels_match_plain(cuda, c, d, seg, metric):
                                   metric=metric, lane_mask=mask)
     want = ref.fee_distance_gather_ref(xt, ids, qs, thrs, at, bt, mt, seg=seg,
                                        metric=metric, lane_mask=mask)
-    ids_np, qs_np = ids.cpu().numpy(), qs.cpu().numpy()
-    near = np.stack([near_threshold(qs_np[i], x[ids_np[i]], thr, alpha, beta,
-                                    margin, seg, metric) for i in range(n_q)])
-    assert_fee_matches([t.cpu().numpy() for t in got],
-                       [t.cpu().numpy() for t in want], near.reshape(-1))
+    near = near_threshold(xt[ids.long()], qs, thrs, at, bt, mt, seg=seg, metric=metric)
+    compare_fee(got, want, near)
     cfg = dfl.make_config(d, [(16, 5, d // 2), (12, 4, d - d // 2)], x)
     packed = torch.from_numpy(dfl.pack_db(x, cfg).view(np.int32)).to(cuda)
     pk = fee_kernel.fee_distance_packed(packed, ids, qs, thrs, at, bt, mt,

@@ -20,7 +20,10 @@ import torch
 
 import repro.index as jix
 from repro.data.synthetic import VecDB as JaxVecDB
-from repro_torch.data.synthetic import DATASETS, VecDB, _generate, exact_topk
+from repro_torch.core.fee import FeeParams
+from repro_torch.core.graph import build_graph
+from repro_torch.data.synthetic import (DATASETS, VecDB, _generate, exact_topk,
+                                        make_dataset)
 from repro_torch.index import CorruptArtifactError, Index, IndexSpec, SearchParams
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -39,7 +42,7 @@ def built():
     out = {}
     for metric, name in (("l2", "unit"), ("ip", "unit_ip")):
         spec = DATASETS[name]
-        d = _generate(spec, 1)
+        d = _generate(spec, 1, device="cpu")
         nq = spec.n_queries
         arrays = dict(name=name, vectors=d["vectors"], queries=d["queries"][:nq],
                       train_queries=d["queries"][nq:], metric=spec.metric,
@@ -79,7 +82,7 @@ def test_exact_topk_matches_jax(built, metric):
     from repro.data.synthetic import exact_topk as jax_exact_topk
 
     tdb, *_ = built[metric]
-    got = exact_topk(tdb.vectors, tdb.queries, 20, metric)
+    got = exact_topk(tdb.vectors, tdb.queries, 20, metric, device="cpu")
     want = jax_exact_topk(tdb.vectors, tdb.queries, 20, metric)
     assert (got == want).mean() >= 0.99
 
@@ -162,3 +165,12 @@ def test_entry_points_raise_without_a_card(built, tmp_path, monkeypatch):
         Index.load(path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port.searcher("local", PARAMS, device="cuda")
+    # the data and graph helpers and the FEE device views default to the card too
+    for call in (lambda: make_dataset("unit", cache=False),
+                 lambda: _generate(DATASETS["unit"]),
+                 lambda: exact_topk(tdb.vectors, tdb.queries, 5, "l2"),
+                 lambda: build_graph(tdb.vectors[:100], m=4),
+                 lambda: port.fee.params(),
+                 lambda: FeeParams.identity(4)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

@@ -3,21 +3,19 @@ wrappers run on CPU tensors) against the Pallas kernels in interpret mode and
 their ``ref.py`` oracles, on the same numpy inputs (the CUDA kernels against
 the plain versions are in ``test_torch_cuda.py``).
 
-Tolerance (``fee_cases.py``): XLA and torch reduce each segment's sum in
-different orders (on the CPU only about a third of per-segment f32 sums come
-out bit-equal), so distances are held to rtol 3e-5 / atol 2e-4 and exit
-flags / ``segs_used`` must be exact except for lanes whose estimate lies
-within that tolerance of the threshold.  The Dfloat decode is integer work
-and must be bit-exact.
+Tolerance (``repro_torch.kernels.check``): XLA and torch reduce each
+segment's sum in different orders (on the CPU only about a third of
+per-segment f32 sums come out bit-equal), so distances are held to rtol 3e-5
+/ atol 2e-4 and exit flags / ``segs_used`` must be exact except for lanes
+whose estimate lies within that tolerance of the threshold.  The Dfloat
+decode is integer work and must be bit-exact.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from fee_cases import SHAPES, inputs, threshold
-from fee_cases import assert_fee_matches as _assert_fee_matches
-from fee_cases import near_threshold as _near_threshold
+from fee_cases import inputs, threshold
 from proptest import given
 from repro.core import dfloat as jdfl
 from repro.kernels import ops as jops
@@ -28,6 +26,8 @@ from repro_torch.core import dfloat as dfl
 from repro_torch.kernels import dfloat_unpack as unpack_kernel
 from repro_torch.kernels import fee_distance as fee_kernel
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.check import SHAPES, compare_fee, near_threshold
+
 
 def _inputs(c, d, seg, metric, seed, cast=None):
     q, x, thr, alpha, beta, margin = inputs(c, d, seg, metric, seed)
@@ -59,13 +59,13 @@ def test_fee_distance_plain_vs_jax(c, d, seg, metric):
             jnp.asarray(beta), jnp.asarray(margin))
     pallas = fee_distance_pallas(*args, seg=seg, metric=metric, tile_c=64)
     oracle = jref.fee_distance_ref(*args, seg=seg, metric=metric)
-    near = _near_threshold(q, x, thr, alpha, beta, margin, seg, metric)
+    near = near_threshold(q, x, thr, alpha, beta, margin, seg=seg, metric=metric)
     plain = ref.fee_distance_ref(*_t(q, x), thr, *_t(alpha, beta, margin),
                                  seg=seg, metric=metric)
     routed = _port_fee(q, x, thr, alpha, beta, margin, seg, metric)
     for got in (plain, routed):
-        _assert_fee_matches(got, pallas, near)
-        _assert_fee_matches(got, oracle, near)
+        compare_fee(got, pallas, near)
+        compare_fee(got, oracle, near)
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])
@@ -75,9 +75,8 @@ def test_fee_distance_bf16_cast_inputs(metric):
     pallas = fee_distance_pallas(jnp.asarray(q), jnp.asarray(x), jnp.float32(thr),
                                  jnp.asarray(alpha), jnp.asarray(beta),
                                  jnp.asarray(margin), seg=seg, metric=metric)
-    near = _near_threshold(q, x, thr, alpha, beta, margin, seg, metric)
-    _assert_fee_matches(_port_fee(q, x, thr, alpha, beta, margin, seg, metric),
-                        pallas, near)
+    near = near_threshold(q, x, thr, alpha, beta, margin, seg=seg, metric=metric)
+    compare_fee(_port_fee(q, x, thr, alpha, beta, margin, seg, metric), pallas, near)
 
 
 def _random_layout(draw, d, x):
@@ -128,7 +127,8 @@ def test_fee_distance_packed_plain_vs_jax_random_layouts(draw):
                                           metric=metric)
     pallas = fee_distance_packed_pallas(*jargs, dfloat_cfg=jcfg, seg=seg,
                                         metric=metric, tile_c=128)
-    near = _near_threshold(q, xq, thr, ones * 1.2, ones, ones * 0, seg, metric)
+    near = near_threshold(q, xq, thr, ones * 1.2, ones, ones * 0, seg=seg,
+                          metric=metric)
     pt = torch.from_numpy(packed.view(np.int32))
     qt, at, bt, mt = _t(q, ones * 1.2, ones, ones * 0)
     plain = ref.fee_distance_packed_ref(qt, pt, thr, at, bt, mt, dfloat_cfg=cfg,
@@ -137,8 +137,8 @@ def test_fee_distance_packed_plain_vs_jax_random_layouts(draw):
                                      qt[None], torch.tensor([thr]), at, bt, mt,
                                      dfloat_cfg=cfg, seg=seg, metric=metric)
     for got in (plain, routed):
-        _assert_fee_matches(got, oracle, near)
-        _assert_fee_matches(got, pallas, near)
+        compare_fee(got, oracle, near)
+        compare_fee(got, pallas, near)
     # packed scoring is bit-identical to f32 scoring of the decoded rows
     f32 = _port_fee(q, xq, thr, ones * 1.2, ones, ones * 0, seg, metric)
     for a, b in zip(routed, f32):
@@ -161,9 +161,9 @@ def test_lane_mask_fold_vs_jax(metric):
     assert rej[~mask].all() and (segs[~mask] == 0).all() and (dist[~mask] == 0).all()
     assert np.array_equal(rej[~mask], np.asarray(want[1])[~mask])
     assert np.array_equal(segs[~mask], np.asarray(want[2])[~mask])
-    near = _near_threshold(q, x, thr, alpha, beta, margin, seg, metric)
-    _assert_fee_matches([t.numpy()[0][mask] for t in got],
-                        [np.asarray(t)[mask] for t in want], near[mask])
+    near = near_threshold(q, x, thr, alpha, beta, margin, seg=seg, metric=metric)
+    compare_fee([t.numpy()[0][mask] for t in got],
+                [np.asarray(t)[mask] for t in want], near[torch.from_numpy(mask)])
 
 
 def test_ops_routing_on_cpu():

@@ -41,7 +41,7 @@ def _overlap(a, b):
 def _unit(name):
     """One dataset, made once and handed to both packages as numpy arrays."""
     spec = DATASETS[name]
-    d = _generate(spec, 0)
+    d = _generate(spec, 0, device="cpu")
     nq = spec.n_queries
     return JaxVecDB(name=name, vectors=d["vectors"], queries=d["queries"][:nq],
                     train_queries=d["queries"][nq:], metric=spec.metric,
