@@ -10,17 +10,25 @@ Phases, each of which fails the run when its check fails:
    ``src/repro_torch/kernels/csrc`` (``nvcc``, sm_90a);
 2. each kernel against its plain PyTorch version on the card at edge shapes
    (``repro_torch.kernels.check``: the ``SHAPES`` of ``tests/test_kernels.py``
-   and two with seg % 4 != 0, both metrics, random Dfloat layouts);
+   and two with seg % 4 != 0, both metrics, random Dfloat layouts); the
+   skip-DMA kernels bit-identical to the kernels whose contract they share,
+   and the tiered kernel at every tier split bit-identical to the packed
+   kernel over the parent rows;
 3. the main path: synthetic data of the SIFT1M shape, ``Index.build`` on the
    card, ``save`` / ``load``, then ``searcher("local")`` over all queries as
-   one batch (a warm-up call and three timed calls) with ``storage="f32"``
-   and ``storage="packed"``.  The launch counts are reset just before each
-   storage's search and read just after it: the f32 search must launch
-   ``fee_distance``, the packed search ``fee_distance_packed`` and
-   ``dfloat_unpack``.  Packed ids must equal f32 ids, recall@10 must reach
-   0.80;
+   one batch (a warm-up call and three timed calls) with ``storage="f32"``,
+   ``"packed"`` and ``"tiered"`` (at the index's automatic tier split), and
+   with ``fee_backend="pallas_skip_dma"`` for f32 and packed.  The launch
+   counts are reset just before each search and read just after it: each
+   search must launch its own kernels (f32: ``fee_distance``; packed:
+   ``fee_distance_packed`` and ``dfloat_unpack``; tiered:
+   ``fee_distance_tiered``; skip-DMA: ``fee_distance_skipdma``, or
+   ``fee_distance_packed_skipdma`` and ``dfloat_unpack``) and not the ones
+   they replace.  Packed ids must equal f32 ids, tiered ids and distances
+   packed ones, each skip-DMA search's ids and distances its storage's
+   default ones; recall@10 must reach 0.80;
 4. the plain path (``fee_backend="jnp"``) on 256 queries: mean id overlap@10
-   with the kernel path >= 0.99;
+   with the kernel path >= 0.99 for each storage;
 5. each kernel against its plain version at the main path's shapes, timed
    with CUDA events beside its bound (bytes over 3.35 TB/s, operations over
    67 TFLOP/s float32), and the f32 kernel's float4 loads against its
@@ -54,17 +62,35 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS = 67e12                  # H100 SXM float32 outside the tensor cores
 REPEATS = 3                        # timed search calls, each over every query
 SLEEP_CYCLES = 100_000_000         # ~50 ms at the H100's clocks: time to queue a timed run
-PORT_KERNELS = ("fee_f32_kernel", "fee_packed_kernel", "dfloat_unpack_kernel")
+PORT_KERNELS = ("fee_f32_kernel", "fee_packed_kernel", "dfloat_unpack_kernel",
+                "fee_skipdma_f32_kernel", "fee_skipdma_packed_kernel", "fee_tiered_kernel")
 REPLACES = {
     "fee_distance": "src/repro/kernels/fee_distance.py:106",
+    "fee_distance_skipdma": "src/repro/kernels/fee_distance.py:192",
     "fee_distance_packed": "src/repro/kernels/fee_distance.py:465",
+    "fee_distance_packed_skipdma": "src/repro/kernels/fee_distance.py:465",
+    "fee_distance_tiered": "src/repro/kernels/fee_distance.py:380",
     "dfloat_unpack": "src/repro/kernels/dfloat_unpack.py:36",
 }
+CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
-    "fee_distance": "src/repro_torch/kernels/csrc/fee_distance.cu",
-    "fee_distance_packed": "src/repro_torch/kernels/csrc/fee_distance.cu",
-    "dfloat_unpack": "src/repro_torch/kernels/csrc/dfloat_unpack.cu",
+    "fee_distance": CSRC + "fee_distance.cu",
+    "fee_distance_skipdma": CSRC + "fee_skipdma.cu",
+    "fee_distance_packed": CSRC + "fee_distance.cu",
+    "fee_distance_packed_skipdma": CSRC + "fee_skipdma.cu",
+    "fee_distance_tiered": CSRC + "fee_tiered.cu",
+    "dfloat_unpack": CSRC + "dfloat_unpack.cu",
 }
+# (search, SearchParams fields, kernels it must launch, kernels it must not)
+SEARCHES = (
+    ("f32", dict(storage="f32"), ("fee_distance",), ()),
+    ("packed", dict(storage="packed"), ("fee_distance_packed", "dfloat_unpack"), ()),
+    ("tiered", dict(storage="tiered"), ("fee_distance_tiered",), ("fee_distance_packed",)),
+    ("f32 skip-DMA", dict(storage="f32", fee_backend="pallas_skip_dma"),
+     ("fee_distance_skipdma",), ("fee_distance",)),
+    ("packed skip-DMA", dict(storage="packed", fee_backend="pallas_skip_dma"),
+     ("fee_distance_packed_skipdma", "dfloat_unpack"), ("fee_distance_packed",)),
+)
 
 
 def log(*a):
@@ -101,12 +127,17 @@ def fee_inputs(db, ids, q, dev, metric, seg, seed):
     return thr, alpha, beta, margin
 
 
+def same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def edge_shape_checks(dev):
     from repro_torch.core import dfloat as dfl
     from repro_torch.kernels import dfloat_unpack as unpack_kernel
     from repro_torch.kernels import fee_distance as fee_kernel
     from repro_torch.kernels import ref
-    from repro_torch.kernels.check import SCALAR_SHAPES, SHAPES, compare_fee, near_threshold
+    from repro_torch.kernels.check import (SCALAR_SHAPES, SHAPES, compare_fee,
+                                           near_threshold, random_layout)
 
     rng = np.random.default_rng(0)
     n_cases = 0
@@ -121,19 +152,17 @@ def edge_shape_checks(dev):
             mask = torch.from_numpy(rng.random((n_q, c)) < 0.8).to(dev)
             args = (ids, q, thr, alpha, beta, margin)
             kw = dict(seg=seg, metric=metric, lane_mask=mask)
+            case = f"{c}x{d}/{seg} {metric}"
             near = near_threshold(xt[ids.long()], q, thr, alpha, beta, margin,
                                   seg=seg, metric=metric)
             got = fee_kernel.fee_distance(xt, *args, **kw)
             want = ref.fee_distance_gather_ref(xt, *args, **kw)
-            _, diff, n_near = compare_fee(got, want, near, f"fee_distance {c}x{d}/{seg} {metric}")
-            # a random Dfloat layout of up to three widths
-            widths = sorted(set(rng.choice(dfl.WIDTH_PALETTE, rng.integers(1, 4))),
-                            reverse=True)
-            cuts = sorted(rng.choice(np.arange(1, d), len(widths) - 1, replace=False))
-            bounds = [0, *cuts, d]
-            runs = [(int(w), dfl.EXP_BITS[int(w)], int(b - a))
-                    for w, a, b in zip(widths, bounds[:-1], bounds[1:])]
-            cfg = dfl.make_config(d, runs, x_np)
+            _, diff, n_near = compare_fee(got, want, near, f"fee_distance {case}")
+            skip = fee_kernel.fee_distance_skipdma(xt, *args, **kw)
+            compare_fee(skip, want, near, f"fee_distance_skipdma {case}")
+            check(same_bits(skip, got), f"fee_distance_skipdma {case}: not bit-identical "
+                  "to fee_distance")
+            cfg, runs = random_layout(rng, d, x_np)
             packed = torch.from_numpy(dfl.pack_db(x_np, cfg).view(np.int32)).to(dev)
             xq = unpack_kernel.dfloat_unpack(packed, cfg)
             check(torch.equal(xq.view(torch.int32),
@@ -143,13 +172,26 @@ def edge_shape_checks(dev):
             near_q = near_threshold(xq[ids.long()], q, thr, alpha, beta, margin,
                                     seg=seg, metric=metric)
             pw = ref.fee_distance_packed_gather_ref(packed, *args, dfloat_cfg=cfg, **kw)
-            compare_fee(pk, pw, near_q, f"fee_distance_packed {c}x{d}/{seg} {metric}")
+            compare_fee(pk, pw, near_q, f"fee_distance_packed {case}")
             f32 = fee_kernel.fee_distance(xq, *args, **kw)
-            check(all(torch.equal(a, b) for a, b in zip(pk, f32)),
-                  f"fee_distance_packed {c}x{d}/{seg} {metric}: not bit-identical "
+            check(same_bits(pk, f32), f"fee_distance_packed {case}: not bit-identical "
                   "to fee_distance over the decoded rows")
-            log(f"edge {c}x{d} seg={seg} {metric}: ok (exit flips {diff}, near-threshold "
-                f"lanes {n_near}), layout {runs}")
+            pks = fee_kernel.fee_distance_packed_skipdma(packed, *args, dfloat_cfg=cfg, **kw)
+            compare_fee(pks, pw, near_q, f"fee_distance_packed_skipdma {case}")
+            check(same_bits(pks, pk), f"fee_distance_packed_skipdma {case}: not "
+                  "bit-identical to fee_distance_packed")
+            for split in range(d // seg + 1):
+                ccfg, rcfg = dfl.split_config(cfg, split * seg)
+                tiers = [torch.from_numpy(t.view(np.int32)).to(dev)
+                         for t in dfl.pack_tiers(x_np, cfg, split * seg)]
+                tkw = dict(coarse_cfg=ccfg, resid_cfg=rcfg, **kw)
+                tg = fee_kernel.fee_distance_tiered(*tiers, *args, **tkw)
+                compare_fee(tg, ref.fee_distance_tiered_gather_ref(*tiers, *args, **tkw),
+                            near_q, f"fee_distance_tiered {case} split={split}")
+                check(same_bits(tg, pk), f"fee_distance_tiered {case} split={split}: not "
+                      "bit-identical to fee_distance_packed")
+            log(f"edge {case}: ok (exit flips {diff}, near-threshold lanes {n_near}), "
+                f"layout {runs}, tiered at {d // seg + 1} splits")
             n_cases += 1
     torch.cuda.synchronize()
     return n_cases
@@ -179,17 +221,53 @@ def time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def time_cold_ms(fn, reps=20, flush_bytes=256 << 20):
+    """Device milliseconds per call with the L2 cache (50 MB) flushed before
+    each call by a 256 MB write, as a search hop over fresh ids finds it:
+    events bracket the call alone, and a sleep kernel holds the device while
+    the host queues every (flush, call) pair."""
+    flush = torch.empty(flush_bytes // 4, device="cuda")
+    fn()
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)] for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / reps
+
+
 def bound(n_bytes, n_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_row(name, launches, fn, plain, err, n_bytes, n_ops):
+    """One ``kernels`` entry: the kernel and its plain version timed on the
+    same inputs, beside the bound of the work."""
+    b_ms, b_by = bound(n_bytes, n_ops)
+    return dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+                launches=launches[name], max_abs_err=err, ms=time_ms(fn),
+                plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def span_words(spans, used, dev):
+    """Words of a block-prefix read per lane: the prefix of ``used`` blocks
+    ends at w1 of block ``used - 1`` (0 words for ``used == 0``)."""
+    w1 = torch.tensor([0] + [b for _, b in spans], device=dev)
+    return int(w1[used.clamp(min=0, max=len(spans))].sum())
+
+
 def main_path_kernels(index, db, res64, dev, launches):
     """Each kernel against its plain version at the shapes the search gives
     it: (Q, L=40) lanes per hop, the neighbors of each query's two nearest
     results scored against its final beam bound (a late hop's threshold);
-    the decode of the first upper level's rows (the descent's largest call)."""
+    the decode of the first upper level's rows (the descent's largest call).
+    Rows in the order of the TPU kernels they replace."""
     from repro_torch.core import dfloat as dfl
     from repro_torch.kernels import dfloat_unpack as unpack_kernel
     from repro_torch.kernels import fee_distance as fee_kernel
@@ -199,6 +277,8 @@ def main_path_kernels(index, db, res64, dev, launches):
     cfg, seg, metric = index.dfloat_cfg, index.seg, index.metric
     x = index.device_db(True, "f32", dev)
     xp = index.device_db(True, "packed", dev)
+    tiers = index.device_db(True, "tiered", dev)
+    ccfg, rcfg = index.tier_cfgs()
     adj = index.device_adjacency(dev)
     near_ids = torch.from_numpy(np.maximum(res64.ids[:, :2], 0).astype(np.int64)).to(dev)
     ids = adj[near_ids].reshape(len(res64.ids), -1).contiguous()            # (Q, 40)
@@ -210,9 +290,10 @@ def main_path_kernels(index, db, res64, dev, launches):
     d, s = x.shape[1], x.shape[1] // seg
     args = (ids, q, thr, fee.alpha, fee.beta, fee.margin)
     kw = dict(seg=seg, metric=metric, lane_mask=mask)
+    pkw = dict(dfloat_cfg=cfg, **kw)
+    tkw = dict(coarse_cfg=ccfg, resid_cfg=rcfg, **kw)
     near = near_threshold(x[ids.long()], q, thr, fee.alpha, fee.beta, fee.margin,
                           seg=seg, metric=metric)
-    rows = []
 
     # bytes every FEE call moves besides the rows: ids, mask, queries,
     # thresholds, alpha/beta/margin in; dist, rejected, segs_used out
@@ -224,14 +305,7 @@ def main_path_kernels(index, db, res64, dev, launches):
     err, flips, n_near = compare_fee(got, want, near, "fee_distance (main path)")
     segs_used = got[2].long()
     n_feat = int(segs_used.sum()) * seg
-    b_ms, b_by = bound(common + n_feat * 4, 3 * n_feat)
-    rows.append(dict(
-        name="fee_distance", route="cuda", source=SOURCES["fee_distance"],
-        replaces=REPLACES["fee_distance"], launches=launches["fee_distance"],
-        max_abs_err=err,
-        ms=time_ms(lambda: fee_kernel.fee_distance(x, *args, **kw)),
-        plain_ms=time_ms(lambda: ref.fee_distance_gather_ref(x, *args, **kw)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    f32_bytes, f32_ops = common + n_feat * 4, 3 * n_feat
     log(f"fee_distance at Q={n_q} L={lanes} D={d} seg={seg}: exit flips {flips}, "
         f"near-threshold lanes {n_near}, mean segs_used "
         f"{float(segs_used.float().mean()):.3f} of {s}")
@@ -240,36 +314,48 @@ def main_path_kernels(index, db, res64, dev, launches):
     q_off = torch.empty(q.numel() + 1, device=dev)[1:].view_as(q).copy_(q)
     args_off = (ids, q_off, *args[2:])
     got_s = fee_kernel.fee_distance(x, *args_off, **kw)
-    check(all(torch.equal(a, b) for a, b in zip(got_s, got)),
-          "fee_distance one-float loads: not bit-identical to float4 loads")
+    check(same_bits(got_s, got), "fee_distance one-float loads: not bit-identical to "
+          "float4 loads")
     loads = {"float4_ms": [], "one_float_ms": []}
     for key in ("float4_ms", "one_float_ms", "one_float_ms", "float4_ms"):   # in turns
         lane_args = args if key == "float4_ms" else args_off
         loads[key].append(time_ms(lambda: fee_kernel.fee_distance(x, *lane_args, **kw)))
     log(json.dumps({"fee_distance_loads": loads}))
 
-    got_p = fee_kernel.fee_distance_packed(xp, *args, dfloat_cfg=cfg, **kw)
-    check(all(torch.equal(a, b) for a, b in zip(got_p, got)),
-          "fee_distance_packed (main path): not bit-identical to fee_distance")
-    want_p = ref.fee_distance_packed_gather_ref(xp, *args, dfloat_cfg=cfg, **kw)
+    got_k = fee_kernel.fee_distance_skipdma(x, *args, **kw)
+    err_k, _, _ = compare_fee(got_k, want, near, "fee_distance_skipdma (main path)")
+    check(same_bits(got_k, got), "fee_distance_skipdma (main path): not bit-identical "
+          "to fee_distance")
+
+    got_p = fee_kernel.fee_distance_packed(xp, *args, **pkw)
+    check(same_bits(got_p, got), "fee_distance_packed (main path): not bit-identical to "
+          "fee_distance")
+    want_p = ref.fee_distance_packed_gather_ref(xp, *args, **pkw)
     err_p, flips_p, _ = compare_fee(got_p, want_p, near, "fee_distance_packed (main path)")
-    # words of the live spans: the block prefix of k segments ends at w1 of block k-1
-    pos, w_words = dfl.feature_positions(cfg)
-    w1 = [max(wi + (1 if ofs + sg.width > 32 else 0) for wi, ofs, sg in
-              pos[k * seg:(k + 1) * seg]) + 1 for k in range(s)]
-    span = torch.tensor(w1, device=dev)[(segs_used - 1).clamp(min=0)]
-    n_words = int(torch.where(segs_used > 0, span, 0).sum())
-    b_ms, b_by = bound(common + n_words * 4 + d * 16, 8 * n_feat)
-    rows.append(dict(
-        name="fee_distance_packed", route="cuda", source=SOURCES["fee_distance_packed"],
-        replaces=REPLACES["fee_distance_packed"],
-        launches=launches["fee_distance_packed"], max_abs_err=err_p,
-        ms=time_ms(lambda: fee_kernel.fee_distance_packed(xp, *args, dfloat_cfg=cfg, **kw)),
-        plain_ms=time_ms(lambda: ref.fee_distance_packed_gather_ref(
-            xp, *args, dfloat_cfg=cfg, **kw)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    w_words = xp.shape[1]
+    n_words = span_words(fee_kernel.block_spans(cfg, seg), segs_used, dev)
+    packed_bytes, packed_ops = common + n_words * 4 + d * 16, 8 * n_feat
     log(f"fee_distance_packed: {w_words} words/row, {n_words * 4 / max(1, n_feat):.3f} "
         f"B per scored feature vs 4 for f32, exit flips {flips_p}")
+    got_pk = fee_kernel.fee_distance_packed_skipdma(xp, *args, **pkw)
+    err_pk, _, _ = compare_fee(got_pk, want_p, near, "fee_distance_packed_skipdma (main path)")
+    check(same_bits(got_pk, got_p), "fee_distance_packed_skipdma (main path): not "
+          "bit-identical to fee_distance_packed")
+
+    got_t = fee_kernel.fee_distance_tiered(*tiers, *args, **tkw)
+    check(same_bits(got_t, got_p), "fee_distance_tiered (main path): not bit-identical "
+          "to fee_distance_packed")
+    want_t = ref.fee_distance_tiered_gather_ref(*tiers, *args, **tkw)
+    err_t, _, _ = compare_fee(got_t, want_t, near, "fee_distance_tiered (main path)")
+    n_coarse = ccfg.dim // seg
+    c_words = span_words(fee_kernel.block_spans(ccfg, seg), segs_used.clamp(max=n_coarse),
+                         dev)
+    r_words = span_words(fee_kernel.block_spans(rcfg, seg), segs_used - n_coarse, dev)
+    tiered_bytes = common + (c_words + r_words) * 4 + d * 16
+    past = float((segs_used > n_coarse).float().mean())
+    log(f"fee_distance_tiered at tier_split={index.tier_split}: Wc={tiers[0].shape[1]} "
+        f"Wr={tiers[1].shape[1]} words, {past:.4f} of the lanes read the residual tier, "
+        f"{(c_words + r_words) * 4 / max(1, n_feat):.3f} B per scored feature")
 
     lvl_ids = torch.from_numpy(index.graph.levels[1][0].astype(np.int64)).to(dev)
     words = xp[lvl_ids].contiguous()
@@ -279,15 +365,52 @@ def main_path_kernels(index, db, res64, dev, launches):
     check(torch.equal(dec, x[lvl_ids]), "dfloat_unpack (main path): decode differs "
           "from the emulated f32 rows")
     c = words.shape[0]
-    b_ms, b_by = bound(c * w_words * 4 + c * d * 4 + d * 16, 8 * c * d)
-    rows.append(dict(
-        name="dfloat_unpack", route="cuda", source=SOURCES["dfloat_unpack"],
-        replaces=REPLACES["dfloat_unpack"], launches=launches["dfloat_unpack"],
-        max_abs_err=0.0,
-        ms=time_ms(lambda: unpack_kernel.dfloat_unpack(words, cfg)),
-        plain_ms=time_ms(lambda: ref.dfloat_unpack_ref(words, cfg)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
     log(f"dfloat_unpack at C={c} W={w_words} D={d}: bit-exact")
+
+    calls = {   # name: (kernel, plain version, max |dist error|, bytes, operations)
+        "fee_distance": (lambda: fee_kernel.fee_distance(x, *args, **kw),
+                         lambda: ref.fee_distance_gather_ref(x, *args, **kw),
+                         err, f32_bytes, f32_ops),
+        "fee_distance_skipdma": (lambda: fee_kernel.fee_distance_skipdma(x, *args, **kw),
+                                 lambda: ref.fee_distance_gather_ref(x, *args, **kw),
+                                 err_k, f32_bytes, f32_ops),
+        "fee_distance_packed": (lambda: fee_kernel.fee_distance_packed(xp, *args, **pkw),
+                                lambda: ref.fee_distance_packed_gather_ref(xp, *args, **pkw),
+                                err_p, packed_bytes, packed_ops),
+        "fee_distance_packed_skipdma": (
+            lambda: fee_kernel.fee_distance_packed_skipdma(xp, *args, **pkw),
+            lambda: ref.fee_distance_packed_gather_ref(xp, *args, **pkw),
+            err_pk, packed_bytes, packed_ops),
+        "fee_distance_tiered": (lambda: fee_kernel.fee_distance_tiered(*tiers, *args, **tkw),
+                                lambda: ref.fee_distance_tiered_gather_ref(*tiers, *args, **tkw),
+                                err_t, tiered_bytes, packed_ops),
+        "dfloat_unpack": (lambda: unpack_kernel.dfloat_unpack(words, cfg),
+                          lambda: ref.dfloat_unpack_ref(words, cfg), 0.0,
+                          c * w_words * 4 + c * d * 4 + d * 16, 8 * c * d),
+    }
+    rows = [kernel_row(name, launches, *calls[name]) for name in SOURCES]
+    # the same calls with the L2 flushed before each: the timed lanes' rows
+    # (up to 100 MB packed, 158 MB f32) fit the 50 MB L2 in part, and
+    # differently for each storage, when one call follows another on them
+    cold = {name: time_cold_ms(calls[name][0]) for name in SOURCES}
+    log(json.dumps({"cold_l2_ms": cold}))
+    # kernel 5 over kernel 3's own rows: the degenerate splits are the
+    # parent bitstream as one tier and an empty other tier, so the same
+    # words go through each kernel's code (in turns)
+    empty = xp[:, :0]
+    full, none = dfl.split_config(cfg, d)
+    layouts = {"packed": lambda: fee_kernel.fee_distance_packed(xp, *args, **pkw),
+               "tiered_split_S": lambda: fee_kernel.fee_distance_tiered(
+                   xp, empty, *args, coarse_cfg=full, resid_cfg=none, **kw),
+               "tiered_split_0": lambda: fee_kernel.fee_distance_tiered(
+                   empty, xp, *args, coarse_cfg=none, resid_cfg=full, **kw)}
+    for name in ("tiered_split_S", "tiered_split_0"):
+        check(same_bits(layouts[name](), got_p), f"fee_distance_tiered {name}: not "
+              "bit-identical to fee_distance_packed")
+    same_rows = {name: [] for name in layouts}
+    for name in (*layouts, *reversed(layouts)):
+        same_rows[name].append(time_ms(layouts[name]))
+    log(json.dumps({"same_rows_ms": same_rows}))
     return rows
 
 
@@ -314,15 +437,15 @@ def run_search(index, db, params, dev):
     return res, secs
 
 
-def report(storage, res, secs, db, k):
+def report(name, res, secs, db, k, **extra):
     from repro_torch.data.synthetic import recall_at_k
 
-    out = dict(storage=storage, batch=len(db.queries),
+    out = dict(search=name, batch=len(db.queries),
                qps=len(db.queries) * len(secs) / sum(secs),
                p50_batch_ms=float(np.median(secs)) * 1e3,
                recall_at_10=recall_at_k(res.ids, db.gt, k),
                hops=float(res.hops.mean()), n_eval=float(res.n_eval.mean()),
-               dims_per_eval=float(res.dims.sum() / max(1, res.n_eval.sum())))
+               dims_per_eval=float(res.dims.sum() / max(1, res.n_eval.sum())), **extra)
     log(json.dumps({"search": out}))
     return out
 
@@ -330,7 +453,7 @@ def report(storage, res, secs, db, k):
 def main_path(args, dev, kernels):
     """Build, save, load and search; returns the loaded index, the data, a
     k=64 result for the kernels' main-path inputs, each kernel's launches in
-    the search of its storage, and the two storages' reports."""
+    the search of its path, and the searches' reports."""
     from repro_torch.data.synthetic import DATASETS, make_dataset
     from repro_torch.index import Index, IndexSpec, SearchParams
 
@@ -366,32 +489,48 @@ def main_path(args, dev, kernels):
     check(np.array_equal(index.db_packed, built.db_packed), "load: payload differs")
     del built
     log(f"save {t['save_s']:.1f} s, load {t['load_s']:.1f} s")
+    t0 = time.perf_counter()
+    xc, xr = index.tier_arrays()
+    log(f"tiers at the automatic split {index.tier_split} of {index.dim // index.seg}: "
+        f"{xc.shape[1]} + {xr.shape[1]} words, packed in {time.perf_counter() - t0:.1f} s")
 
-    # each storage's search carries its own launch counts
-    launches = {}
-    runs = {}
-    for storage, path_kernels in (("f32", ("fee_distance",)),
-                                  ("packed", ("fee_distance_packed", "dfloat_unpack"))):
+    # each search carries its own launch counts
+    launches, runs = {}, {}
+    for name, fields, must, must_not in SEARCHES:
         for fn in kernels.values():
             fn.launches = 0
-        runs[storage] = run_search(index, db, SearchParams(ef=64, k=10, storage=storage), dev)
-        counts = {name: fn.launches for name, fn in kernels.items()}
-        log(json.dumps({"launches": {"storage": storage, **counts}}))
-        for name in path_kernels:
-            check(counts[name] > 0, f"kernel {name} was not launched by the {storage} search")
-            launches[name] = counts[name]
-    (res_f, secs_f), (res_p, secs_p) = runs["f32"], runs["packed"]
-    rep = [report("f32", res_f, secs_f, db, 10), report("packed", res_p, secs_p, db, 10)]
-    check(np.array_equal(res_p.ids, res_f.ids), "packed ids differ from f32 ids")
-    check(rep[0]["recall_at_10"] >= 0.80,
-          f"recall@10 {rep[0]['recall_at_10']:.4f} < 0.80")
+        runs[name] = run_search(index, db, SearchParams(ef=64, k=10, **fields), dev)
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        log(json.dumps({"launches": {"search": name, **counts}}))
+        for k in must:
+            check(counts[k] > 0, f"kernel {k} was not launched by the {name} search")
+            launches.setdefault(k, counts[k])
+        for k in must_not:
+            check(counts[k] == 0, f"the {name} search launched {k} {counts[k]} times")
+    rep = {}
+    for name, (res, secs) in runs.items():
+        extra = {}
+        if name == "tiered":
+            extra = dict(tier_split=index.tier_split, coarse_words=int(xc.shape[1]),
+                         residual_words=int(xr.shape[1]),
+                         residual_fetch_fraction=res.residual_fetch_fraction)
+        rep[name] = report(name, res, secs, db, 10, **extra)
+    res = {name: r for name, (r, _) in runs.items()}
+    check(np.array_equal(res["packed"].ids, res["f32"].ids), "packed ids differ from f32 ids")
+    for name, base in (("tiered", "packed"), ("f32 skip-DMA", "f32"),
+                       ("packed skip-DMA", "packed")):
+        check(np.array_equal(res[name].ids, res[base].ids)
+              and np.array_equal(res[name].dists, res[base].dists),
+              f"{name} ids and distances differ from {base}")
+    check(rep["f32"]["recall_at_10"] >= 0.80,
+          f"recall@10 {rep['f32']['recall_at_10']:.4f} < 0.80")
 
     # the plain path on a slice of the queries
     sub = dataclasses.replace(db, queries=db.queries[:256], gt=db.gt[:256])
-    for storage, res in (("f32", res_f), ("packed", res_p)):
+    for storage in ("f32", "packed", "tiered"):
         plain = index.searcher("local", SearchParams(ef=64, k=10, storage=storage,
                                                      fee_backend="jnp"), device=dev)
-        ov = overlap(plain(sub.queries).ids, res.ids[:256])
+        ov = overlap(plain(sub.queries).ids, res[storage].ids[:256])
         log(f"plain path ({storage}) vs kernel path on 256 queries: id overlap@10 {ov:.4f}")
         check(ov >= 0.99, f"plain vs kernel id overlap {ov:.4f} < 0.99 ({storage})")
     res64 = index.search(db.queries, SearchParams(ef=64, k=64), device=dev)
@@ -471,12 +610,11 @@ def main(argv=None) -> int:
     n_edge = edge_shape_checks(dev)
     log(f"edge shapes: {n_edge} cases match their plain versions")
 
-    kernels = {"fee_distance": fee_kernel.fee_distance,
-               "fee_distance_packed": fee_kernel.fee_distance_packed,
-               "dfloat_unpack": unpack_kernel.dfloat_unpack}
+    kernels = {name: getattr(fee_kernel, name) for name in REPLACES if name != "dfloat_unpack"}
+    kernels["dfloat_unpack"] = unpack_kernel.dfloat_unpack
     index, db, res64, launches, rep = main_path(args, dev, kernels)
     rows = main_path_kernels(index, db, res64, dev, launches)
-    profile_search(index, db, dev, rep[0]["p50_batch_ms"])
+    profile_search(index, db, dev, rep["f32"]["p50_batch_ms"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -158,3 +158,45 @@ def fit_beta(
         p_target=p_target,
         metric=metric,
     )
+
+
+def tier_fee(fit: dict, tier_split: int) -> dict:
+    """Per-tier views of a :func:`fit_beta` record for tiered storage.
+
+    Every alpha/beta/margin entry of the fit corrects its *own* prefix
+    (Var_k is measured per checkpoint), so slicing at the tier boundary is
+    the exact per-tier re-fit: the coarse slice carries the corrections that
+    drive the resident tier's exit decisions, the residual slice the
+    continuation.  Nothing is re-forced at the boundary — the last coarse
+    checkpoint keeps its Chebyshev-corrected beta/margin (it is an interior
+    checkpoint of the full sequence, not a final-segment exact estimate), so
+    exits at the boundary stay conservative and the concatenated sequence is
+    bit-identical to the unsplit fit.
+    """
+    s = len(fit["alpha"])
+    if not 0 <= tier_split <= s:
+        raise ValueError(f"tier_split={tier_split} outside [0, {s}]")
+    sl = lambda lo, hi: {k: (np.asarray(fit[k])[lo:hi]
+                             if k in ("alpha", "beta", "margin", "var_k")
+                             else fit[k]) for k in fit}
+    return dict(tier_split=tier_split, coarse=sl(0, tier_split),
+                residual=sl(tier_split, s))
+
+
+def suggest_tier_split(eigvals: np.ndarray, seg: int,
+                       energy: float = 0.9) -> int:
+    """Data-driven coarse-tier size: the smallest FEE-segment prefix whose
+    rotated-space energy share reaches ``energy``.
+
+    After the sPCA rotation the leading eigvals dominate, so a small prefix
+    carries most of each distance — once alpha_k ~ 1/energy the estimator is
+    tight enough that most candidates resolve their exit inside the coarse
+    tier, which is exactly what makes the residual tier cold.  Clamped to
+    [1, s-1] so both tiers are non-degenerate.
+    """
+    lam = np.maximum(np.asarray(eigvals, np.float64), 0.0)
+    s = len(lam) // seg
+    csum = np.cumsum(lam)
+    share = csum[np.arange(1, s + 1) * seg - 1] / max(csum[-1], 1e-30)
+    k = int(np.searchsorted(share, energy) + 1)
+    return max(1, min(k, s - 1))

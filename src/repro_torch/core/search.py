@@ -21,7 +21,9 @@ and the compaction is a stable partition.
 
 Only the lanes that are fresh and not tombstoned are handed to the kernel as
 alive: the others never enter the beam in the JAX package either, and the
-kernel then moves no bytes for them.
+kernel then moves no bytes for them (with ``storage="tiered"``, no residual
+words either).  Tiered search also counts ``n_resid`` per query: the scored
+lanes whose FEE sequence ran past the coarse tier.
 
 The visited bitmap is (Q, ceil(N/32)) int32 words; the visited update adds
 each fresh id's bit, which is an OR only because fresh ids are deduped first.
@@ -40,7 +42,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import dfloat as dfl
 from repro_torch.core import fee as fee_mod
 from repro_torch.core.fee import BIG, FeeParams
 from repro_torch.kernels import ops as kops
@@ -170,27 +171,34 @@ def exclude_dead(beam_ids, beam_d, tombstone):
 
 
 def _score(vectors, ids, q, threshold, fee: FeeParams | None, cfg: SearchConfig,
-           dfl_cfg: dfl.DfloatConfig | None, alive):
+           dfl_cfg, alive):
     """FEE/exact distances of the (Q, L) lanes ``ids``, routed through the
-    kernel dispatcher.  ``vectors`` is the (N, D) f32 DB or, for
-    ``storage="packed"``, the (N, W) packed words; ``alive`` (Q, L) marks the
-    lanes to score — the others report rejected with ``segs_used == 0``."""
+    kernel dispatcher.  ``vectors`` is the (N, D) f32 DB, for
+    ``storage="packed"`` the (N, W) packed words with ``dfl_cfg`` their
+    layout, and for ``storage="tiered"`` the (coarse, residual) pair of tier
+    words with ``dfl_cfg`` the matching pair of layouts — the coarse tier
+    makes the exit decisions and residual words move only for lanes that
+    survive it.  ``alive`` (Q, L) marks the lanes to score — the others report
+    rejected with ``segs_used == 0`` (for tiered: no residual fetch either)."""
     packed = cfg.storage == "packed"
+    tiered = cfg.storage == "tiered"
     if cfg.use_fee:
         common = dict(seg=cfg.seg, metric=cfg.metric, backend=cfg.fee_backend,
                       lane_mask=alive)
+        fp = (fee.alpha, fee.beta, fee.margin)
+        if tiered:
+            return kops.fee_distance_tiered(vectors[0], vectors[1], ids, q,
+                                            threshold, *fp,
+                                            coarse_cfg=dfl_cfg[0],
+                                            resid_cfg=dfl_cfg[1], **common)
         if packed:
-            return kops.fee_distance_packed(vectors, ids, q, threshold,
-                                            fee.alpha, fee.beta, fee.margin,
+            return kops.fee_distance_packed(vectors, ids, q, threshold, *fp,
                                             dfloat_cfg=dfl_cfg, **common)
-        return kops.fee_distance(vectors, ids, q, threshold, fee.alpha,
-                                 fee.beta, fee.margin, **common)
+        return kops.fee_distance(vectors, ids, q, threshold, *fp, **common)
     n_q, lanes = ids.shape
-    rows = vectors[ids.long()]
-    if packed:
-        rows = kops.dfloat_unpack_rows(rows.reshape(n_q * lanes, -1), dfl_cfg,
-                                       backend=cfg.fee_backend)
-        rows = rows.reshape(n_q, lanes, -1)
+    flat = ids.long().reshape(-1)
+    rows = (decode_rows(vectors, flat, dfl_cfg, backend=cfg.fee_backend)
+            if packed or tiered else vectors[flat]).reshape(n_q, lanes, -1)
     score = fee_mod.exact_distance(q, rows, metric=cfg.metric)
     n_segs = rows.shape[-1] // cfg.seg
     return (score, ~alive,
@@ -198,7 +206,7 @@ def _score(vectors, ids, q, threshold, fee: FeeParams | None, cfg: SearchConfig,
 
 
 def _hop_body(state, vectors, adj, q, fee: FeeParams | None, cfg: SearchConfig,
-              dfl_cfg: dfl.DfloatConfig | None = None, tombstone=None):
+              dfl_cfg=None, tombstone=None):
     beam_ids, beam_d, expanded, visited = state
     n_q, ef = beam_ids.shape
     e, m = min(cfg.expand, ef), adj.shape[1]
@@ -245,15 +253,25 @@ def _hop_body(state, vectors, adj, q, fee: FeeParams | None, cfg: SearchConfig,
         n_eval=live.sum(1).to(torch.int32),
         dims=(segs.sum(1) * cfg.seg).to(torch.int32),
     )
+    if cfg.storage == "tiered":
+        # a lane crossed into the residual tier iff it survived every coarse
+        # checkpoint — exited lanes are never charged residual bytes
+        n_coarse = dfl_cfg[0].dim // cfg.seg
+        trace["n_resid"] = (segs > n_coarse).sum(1).to(torch.int32)
     return (beam_ids, beam_d, expanded, visited), trace
 
 
-def _init_state(q, entries, vectors, cfg: SearchConfig, n_words,
-                dfl_cfg: dfl.DfloatConfig | None = None):
+def _lead(vectors) -> torch.Tensor:
+    """The DB tensor of any storage that gives its rows and device (for
+    tiered storage the coarse tier's)."""
+    return vectors[0] if isinstance(vectors, tuple) else vectors
+
+
+def _init_state(q, entries, vectors, cfg: SearchConfig, n_words, dfl_cfg=None):
     n_q, ef = q.shape[0], cfg.ef
-    row = vectors[entries.long()]
-    if cfg.storage == "packed":
-        row = kops.dfloat_unpack_rows(row, dfl_cfg, backend=cfg.fee_backend)
+    e = entries.long()
+    row = (vectors[e] if cfg.storage == "f32"
+           else decode_rows(vectors, e, dfl_cfg, backend=cfg.fee_backend))
     d0 = fee_mod.exact_distance(q, row[:, None, :], metric=cfg.metric)[:, 0]
     dev = q.device
     beam_ids = torch.full((n_q, ef), -1, dtype=torch.int32, device=dev)
@@ -268,10 +286,13 @@ def _init_state(q, entries, vectors, cfg: SearchConfig, n_words,
 
 
 def _search_batch(vectors, adj, fee, tombstone, queries, entries, *,
-                  cfg: SearchConfig, trace: bool,
-                  dfl_cfg: dfl.DfloatConfig | None = None) -> dict:
+                  cfg: SearchConfig, trace: bool, dfl_cfg=None) -> dict:
     """Beam search of one query batch; dict of (Q, ...) tensors."""
-    n_words = -(-vectors.shape[0] // 32)
+    n_words = -(-_lead(vectors).shape[0] // 32)
+    # counters carried through the early-terminating path, hops last (a hop
+    # where at least one node was popped)
+    cnt_keys = (("n_eval", "dims", "n_resid") if cfg.storage == "tiered"
+                else ("n_eval", "dims"))
     state = _init_state(queries, entries, vectors, cfg, n_words, dfl_cfg)
     hop = lambda s: _hop_body(s, vectors, adj, queries, fee, cfg, dfl_cfg,
                               tombstone)
@@ -282,17 +303,15 @@ def _search_batch(vectors, adj, fee, tombstone, queries, entries, *,
             hops.append(t)
         traces = {k: torch.stack([t[k] for t in hops], dim=1) for k in hops[0]}
     else:
-        # counters carried through the early-terminating path: n_eval, dims
-        # and hops (a hop where at least one node was popped)
-        counters = torch.zeros((queries.shape[0], 3), dtype=torch.int64,
-                               device=queries.device)
+        counters = torch.zeros((queries.shape[0], len(cnt_keys) + 1),
+                               dtype=torch.int64, device=queries.device)
         while True:
             _, beam_d, expanded, _ = state
             if not bool(((~expanded) & (beam_d < BIG)).any()):
                 break
             state, t = hop(state)
-            counters += torch.stack([t["n_eval"], t["dims"],
-                                     (t["node"] >= 0).any(1).to(torch.int32)],
+            counters += torch.stack([t[k] for k in cnt_keys]
+                                    + [(t["node"] >= 0).any(1).to(torch.int32)],
                                     dim=1)
     beam_ids, beam_d = state[0], state[1]
     if tombstone is not None:
@@ -301,45 +320,45 @@ def _search_batch(vectors, adj, fee, tombstone, queries, entries, *,
     if trace:
         out["trace"] = traces
         out["hops"] = (traces["node"] >= 0).any(-1).sum(-1)
-        out["n_eval"] = traces["n_eval"].sum(-1)
-        out["dims"] = traces["dims"].sum(-1)
+        for k in cnt_keys:
+            out[k] = traces[k].sum(-1)
     else:
-        out["n_eval"], out["dims"], out["hops"] = counters.to(torch.int32).unbind(1)
+        *cnt, out["hops"] = counters.to(torch.int32).unbind(1)
+        out.update(zip(cnt_keys, cnt))
     return out
 
 
 def make_searcher(vectors, adj, cfg: SearchConfig,
                   fee: FeeParams | dict | None = None, trace: bool = False, *,
-                  dfloat_cfg: dfl.DfloatConfig | None = None, tombstone=None):
+                  dfloat_cfg=None, tombstone=None):
     """Returns search(queries (Q, D), entries (Q,)) -> dict of tensors.
 
-    ``vectors``/``adj`` are tensors on the device the search runs on (the
-    (N, D) f32 DB, or for ``cfg.storage == "packed"`` the (N, W) int32 word
-    view of the Dfloat bitstream with ``dfloat_cfg`` its layout).
-    ``tombstone`` ((ceil(N/32),) int32 words, bit = dead row) masks deleted
-    rows out of scoring and results.
+    ``vectors``/``adj`` are tensors on the device the search runs on: the
+    (N, D) f32 DB; for ``cfg.storage == "packed"`` the (N, W) int32 word view
+    of the Dfloat bitstream with ``dfloat_cfg`` its layout; for
+    ``cfg.storage == "tiered"`` the (coarse, residual) pair of tier word
+    views with ``dfloat_cfg`` the matching pair of layouts from
+    ``dfloat.split_config``.  ``tombstone`` ((ceil(N/32),) int32 words,
+    bit = dead row) masks deleted rows out of scoring and results.
     """
-    if cfg.storage == "tiered":
-        raise NotImplementedError(
-            'storage="tiered" needs the tiered FEE kernel, not ported to CUDA '
-            "yet: see ROADMAP.md queue A, item 5 and queue B, item 5")
-    if cfg.fee_backend == "pallas_skip_dma":
-        raise NotImplementedError(
-            'fee_backend="pallas_skip_dma" (the manual-DMA TPU kernels) is not '
-            "ported to CUDA yet: see ROADMAP.md queue B, item 4")
     packed = cfg.storage == "packed"
+    tiered = cfg.storage == "tiered"
     if packed and dfloat_cfg is None:
         raise ValueError('cfg.storage="packed" requires dfloat_cfg=DfloatConfig')
-    dev = vectors.device
+    if tiered and not (isinstance(dfloat_cfg, tuple) and len(dfloat_cfg) == 2
+                       and isinstance(vectors, tuple) and len(vectors) == 2):
+        raise ValueError('cfg.storage="tiered" requires vectors=(coarse, '
+                         "residual) and dfloat_cfg=(coarse_cfg, residual_cfg)")
+    dev = _lead(vectors).device
     fp = FeeParams.coerce(fee, device=dev)
     if cfg.use_fee and fp is None:
         raise ValueError("cfg.use_fee=True requires fee=FeeParams(...) "
                          "(use FeeParams.identity(n_seg) for plain d_part exit)")
-    n_rows = vectors.shape[0]
+    n_rows = _lead(vectors).shape[0]
     if tombstone is not None and tuple(tombstone.shape) != (-(-n_rows // 32),):
         raise ValueError(f"tombstone shape {tuple(tombstone.shape)} does not "
                          f"cover {n_rows} rows")
-    dfl_cfg = dfloat_cfg if packed else None
+    dfl_cfg = dfloat_cfg if packed or tiered else None
     chunk = max(1, _VISITED_BYTES // (4 * -(-n_rows // 32)))
 
     def search(queries, entries):
@@ -400,28 +419,38 @@ def descend_entry(vectors, graph, queries, metric: str) -> np.ndarray:
 
 def search_graph(vectors, graph, queries, cfg: SearchConfig,
                  fee: FeeParams | dict | None = None, trace: bool = False,
-                 dfloat_cfg: dfl.DfloatConfig | None = None,
-                 descent_vectors=None, tombstone=None) -> dict:
+                 dfloat_cfg=None, descent_vectors=None, tombstone=None) -> dict:
     """Descend to base entries, run base-layer search; numpy result dict.
 
-    ``vectors`` is a tensor on the search device; with ``storage="packed"``
-    it is the packed word view and ``descent_vectors`` (dense tensor or
-    ``ids -> rows`` callable) supplies the f32 rows of the upper levels
-    (default: decoded from ``vectors``).
+    ``vectors`` is a tensor on the search device (the tier pair for
+    ``storage="tiered"``, as in :func:`make_searcher`); with packed or tiered
+    storage ``descent_vectors`` (dense tensor or ``ids -> rows`` callable)
+    supplies the f32 rows of the upper levels (default: decoded from
+    ``vectors``).
     """
+    dev = _lead(vectors).device
     if descent_vectors is None:
-        if cfg.storage == "packed":
-            descent_vectors = lambda ids: kops.dfloat_unpack_rows(
-                vectors[torch.as_tensor(ids, device=vectors.device).long()],
-                dfloat_cfg, backend=cfg.fee_backend)
-        else:
+        if cfg.storage == "f32":
             descent_vectors = vectors
-    q = torch.as_tensor(queries, dtype=torch.float32, device=vectors.device)
+        else:
+            descent_vectors = lambda ids: decode_rows(
+                vectors, torch.as_tensor(ids, device=dev).long(), dfloat_cfg,
+                backend=cfg.fee_backend)
+    q = torch.as_tensor(queries, dtype=torch.float32, device=dev)
     entries = descend_entry(descent_vectors, graph, q, cfg.metric)
     out = make_searcher(vectors, torch.as_tensor(graph.base_adjacency,
-                                                 device=vectors.device),
+                                                 device=dev),
                         cfg, fee=fee, trace=trace, dfloat_cfg=dfloat_cfg,
                         tombstone=tombstone)(q, entries)
     to_np = lambda v: ({k: x.cpu().numpy() for k, x in v.items()}
                        if isinstance(v, dict) else v.cpu().numpy())
     return {k: to_np(v) for k, v in out.items()}
+
+
+def decode_rows(vectors, ids, dfloat_cfg, *, backend: str = "auto"):
+    """f32 rows ``ids`` of a packed DB (``vectors`` the word view,
+    ``dfloat_cfg`` its layout) or of a tiered one (both as pairs)."""
+    if isinstance(vectors, tuple):
+        return kops.dfloat_unpack_tiered_rows(vectors[0][ids], vectors[1][ids],
+                                              *dfloat_cfg, backend=backend)
+    return kops.dfloat_unpack_rows(vectors[ids], dfloat_cfg, backend=backend)

@@ -101,22 +101,48 @@ class Index:
             self._db_q = dfl.emulate_db(self.db_rot, self.dfloat_cfg)
         return self._db_q
 
+    @property
+    def tier_split(self) -> int:
+        """Resolved coarse-tier size in FEE segments for ``storage="tiered"``:
+        ``spec.tier_split`` when set, else the energy-based auto split."""
+        n_segs = self.dim // self.seg
+        if self.spec.tier_split is not None:
+            ts = self.spec.tier_split
+            if not 0 <= ts <= n_segs:
+                raise ValueError(
+                    f"spec.tier_split={ts} outside [0, {n_segs}] for "
+                    f"dim={self.dim}, seg={self.seg}")
+            return ts
+        return pca_mod.suggest_tier_split(self.spca.eigvals, self.seg)
+
+    def tier_cfgs(self) -> tuple[dfl.DfloatConfig, dfl.DfloatConfig]:
+        """(coarse, residual) Dfloat layouts at the resolved tier split."""
+        return dfl.split_config(self.dfloat_cfg, self.tier_split * self.seg)
+
     def tier_arrays(self) -> tuple[np.ndarray, np.ndarray]:
-        """(coarse, residual) packed tier bitstreams at ``spec.tier_split``."""
+        """(coarse, residual) packed tier bitstreams at the resolved split —
+        field for field the bits of ``db_packed`` re-grouped at the tier
+        boundary.  Derived from ``db_rot`` and cached when the artifact did
+        not persist them."""
         if self._tiers is None:
             self._tiers = dfl.pack_tiers(self.db_rot, self.dfloat_cfg,
-                                         self.spec.tier_split * self.seg)
+                                         self.tier_split * self.seg)
         return self._tiers
 
     # -- device copies --------------------------------------------------------
-    def device_db(self, use_dfloat: bool, storage: str, device) -> torch.Tensor:
+    def device_db(self, use_dfloat: bool, storage: str,
+                  device) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
         """The DB in ``storage``'s representation on ``device``, shared by
         every searcher there: the (N, W) packed words as int32 (a bit view of
-        the uint32 bitstream), or the (N, D) f32 rows (``db_q`` emulated on
-        the device, or ``db_rot``)."""
+        the uint32 bitstream), the (coarse, residual) pair of tier words as
+        int32, or the (N, D) f32 rows (``db_q`` emulated on the device, or
+        ``db_rot``)."""
         key = ("db", storage, bool(use_dfloat), str(device))
         if key not in self._device:
-            if storage == "packed":
+            if storage == "tiered":
+                arr = tuple(torch.from_numpy(t.view(np.int32)).to(device)
+                            for t in self.tier_arrays())
+            elif storage == "packed":
                 arr = torch.from_numpy(self.db_packed.view(np.int32)).to(device)
             elif self._db_q is not None and use_dfloat:
                 arr = torch.from_numpy(self._db_q).to(device)

@@ -41,8 +41,9 @@ class IndexSpec:
     prune: bool = True                        # RNG/occlusion prune base layer
     seed: int = 0
     tier_split: int | None = None             # coarse-tier FEE segments for
-                                              # storage="tiered" (persisted;
-                                              # tiered search is not ported)
+                                              # storage="tiered": None = auto
+                                              # (energy split), 0 / n_segs =
+                                              # the degenerate splits
 
     @classmethod
     def for_db(cls, db, **overrides) -> "IndexSpec":
@@ -71,7 +72,7 @@ class SearchParams:
     max_hops: int = 0          # 0 -> auto (4*ef expansions) when tracing
     expand: int = 4            # beam entries popped per hop (1 = classic HNSW)
     fee_backend: str = "auto"  # auto | jnp | pallas | pallas_skip_dma
-    storage: str = "f32"       # score dense f32 rows | the packed bitstream
+    storage: str = "f32"       # dense f32 rows | packed bitstream | two tiers
     compact: float = 0.5       # frontier compaction keep fraction
 
     VALID_STORAGES = ("f32", "packed", "tiered")
@@ -116,6 +117,14 @@ class SearchResult:
                    hops=np_of(out.get("hops")), n_eval=np_of(out.get("n_eval")),
                    dims=np_of(out.get("dims")), n_resid=np_of(out.get("n_resid")),
                    trace=np_of(out.get("trace")))
+
+    @property
+    def residual_fetch_fraction(self) -> float | None:
+        """Fraction of evaluated lanes that fetched the residual tier
+        (``storage="tiered"`` only; exited lanes never pay residual bytes)."""
+        if self.n_resid is None or self.n_eval is None:
+            return None
+        return float(self.n_resid.sum()) / max(float(self.n_eval.sum()), 1.0)
 
     def __getitem__(self, key: str):
         """Dict-style access, as the JAX package's result offers."""

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import dfloat as dfl
+
 # (C rows, D dims, seg): the cases of the JAX package's kernel tests (C not a
 # multiple of any tile, D=960, seg=32)
 SHAPES = [(7, 32, 8), (100, 128, 16), (129, 128, 16), (64, 960, 32), (256, 64, 16)]
@@ -67,3 +69,15 @@ def compare_fee(got, want, near, what: str = "fee_distance"):
         raise Mismatch(f"{what}: distance beyond tolerance (max err {float(err.max()):.3g})")
     return (float(err.max()) if err.numel() else 0.0, int((~same).sum()),
             int(near.sum()))
+
+
+def random_layout(rng: np.random.Generator, d: int, x: np.ndarray):
+    """A random Dfloat layout of ``d`` features in up to three runs of the
+    width palette, biased to the data ``x``: returns (config, runs)."""
+    widths = sorted(set(rng.choice(dfl.WIDTH_PALETTE, rng.integers(1, 4))),
+                    reverse=True)
+    cuts = sorted(rng.choice(np.arange(1, d), len(widths) - 1, replace=False))
+    bounds = [0, *cuts, d]
+    runs = [(int(w), dfl.EXP_BITS[int(w)], int(b - a))
+            for w, a, b in zip(widths, bounds[:-1], bounds[1:])]
+    return dfl.make_config(d, runs, x), runs

@@ -37,14 +37,6 @@ struct PackedRow {
   }
 };
 
-// A lane is scored only when it is alive and its id names a row; any other
-// lane reports dist 0, rejected, 0 segments (it moved no bytes).
-__device__ __forceinline__ bool lane_live(const int* ids, const uint8_t* alive, long long g,
-                                          long long n_rows, int* id) {
-  *id = ids[g];
-  return (alive == nullptr || alive[g]) && *id >= 0 && *id < n_rows;
-}
-
 template <bool VEC>
 __global__ void fee_f32_kernel(const float* __restrict__ db, long long n_rows, int dim,
                                const int* __restrict__ ids, const uint8_t* __restrict__ alive,
@@ -56,13 +48,11 @@ __global__ void fee_f32_kernel(const float* __restrict__ db, long long n_rows, i
   if (g >= n_total) return;
   const long long qi = g / lanes;
   int id;
-  if (lane_live(ids, alive, g, n_rows, &id)) {
+  if (naszip::lane_live(ids, alive, g, n_rows, &id)) {
     naszip::fee_lane<VEC>(F32Row{db + id * static_cast<long long>(dim)}, q + qi * dim,
                           __ldg(thr + qi), a, dist + g, rejected + g, segs_used + g);
   } else {
-    dist[g] = 0.0f;
-    rejected[g] = 1;
-    segs_used[g] = 0;
+    naszip::dead_lane(dist + g, rejected + g, segs_used + g);
   }
 }
 
@@ -81,14 +71,12 @@ __global__ void fee_packed_kernel(const uint32_t* __restrict__ xp, long long n_r
   if (g >= n_total) return;
   const long long qi = g / lanes;
   int id;
-  if (lane_live(ids, alive, g, n_rows, &id)) {
+  if (naszip::lane_live(ids, alive, g, n_rows, &id)) {
     naszip::fee_lane<false>(PackedRow{xp + id * static_cast<long long>(words), tab},
-                          q + qi * dim, __ldg(thr + qi), a, dist + g, rejected + g,
-                          segs_used + g);
+                            q + qi * dim, __ldg(thr + qi), a, dist + g, rejected + g,
+                            segs_used + g);
   } else {
-    dist[g] = 0.0f;
-    rejected[g] = 1;
-    segs_used[g] = 0;
+    naszip::dead_lane(dist + g, rejected + g, segs_used + g);
   }
 }
 

@@ -1,24 +1,37 @@
-"""CUDA kernels: FEE-sPCA early-exit distance over f32 rows or packed Dfloat
-rows, batched over queries with the row gather fused by id.
+"""CUDA kernels: FEE-sPCA early-exit distance over f32 rows, packed Dfloat
+rows or a (coarse, residual) pair of tier rows, batched over queries with the
+row gather fused by id.
 
-``fee_distance`` replaces ``repro/kernels/fee_distance.py::
-fee_distance_pallas`` (body ``_kernel``); ``fee_distance_packed`` replaces
-``fee_distance_packed_pallas`` with ``skip_dma=False`` (``_packed_kernel``,
-``_decode_block``).  Source: ``csrc/fee_distance.cu``.
+  ``fee_distance``          replaces ``repro/kernels/fee_distance.py::
+                            fee_distance_pallas`` (``_kernel``);
+  ``fee_distance_packed``   ``fee_distance_packed_pallas``, ``skip_dma=False``
+                            (``_packed_kernel``, ``_decode_block``);
+                            source ``csrc/fee_distance.cu``;
+  ``fee_distance_skipdma``  ``fee_distance_skipdma_pallas``
+                            (``_skipdma_kernel``);
+  ``fee_distance_packed_skipdma``  ``fee_distance_packed_pallas``,
+                            ``skip_dma=True`` (``_packed_skipdma_kernel``);
+                            source ``csrc/fee_skipdma.cu``;
+  ``fee_distance_tiered``   ``fee_distance_tiered_pallas`` (``_tiered_kernel``);
+                            source ``csrc/fee_tiered.cu``.
 
 The JAX kernels score one query against pre-gathered rows under ``vmap``;
 these take the resident DB, (Q, L) row ids, an optional (Q, L) alive mask,
 the (Q, D) queries and per-query thresholds (Q,), and launch once for every
-lane of the batch.  One thread scores one lane: a loop over segments inside
-the thread replaces the TPU's sequential grid axis, and a lane reads segment
-``s`` of its row only while it is alive — exited and dead lanes stop moving
-bytes.  The packed kernel decodes each live segment's fields (the word span
-``[w0, w1)`` of ``_block_positions``) with the ``dfloat_unpack`` table and
-shares the accumulate/exit code with the f32 kernel, so packed scores are
-bit-identical to f32 scores over the emulated rows.
+lane of the batch.  ``fee_distance``, ``fee_distance_packed`` and
+``fee_distance_tiered`` score one lane per thread: a loop over segments
+inside the thread replaces the TPU's sequential grid axis, and a lane reads
+segment ``s`` of its row only while it is alive — exited and dead lanes stop
+moving bytes (for tiered rows: never touch the residual tier unless they pass
+the coarse one).  The skip-DMA kernels score 32 lanes per warp and copy each
+live lane's segment (or the word span ``[w0, w1)`` of the block's packed
+fields, :func:`block_spans`) into shared memory with ``cp.async`` while the
+warp has a live lane, the counterpart of the TPU's gated ``make_async_copy``.
+All five share one accumulate/exit step, so packed, tiered and skip-DMA
+scores are bit-identical to f32 scores over the emulated rows.
 
 Bound on this card: bytes.  A live segment is a 64 B (f32) or ~32 B
-(packed) gather for ~3 flops per feature; the design reads each live
+(packed) gather for ~3 flops per feature; the designs read each live
 segment's bytes once and no exited lane's.
 
 Outputs are (dist, rejected, segs_used), each (Q, L): ``dist`` is the full
@@ -28,17 +41,59 @@ outputs over the gathered rows ``db[ids]``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import dfloat as dfl
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.dfloat_unpack import check_packed, decode_table
+from repro_torch.kernels.dfloat_unpack import MAX_TABLE_DIM, check_packed, decode_table
 
-_LIB = "fee_distance"
+_LIB, _SKIP_LIB, _TIER_LIB = "fee_distance", "fee_skipdma", "fee_tiered"
 P, I, LL = _build.P, _build.I, _build.LL
 _F32_ARGS = (P, LL, I, P, P, P, P, P, P, P, LL, I, I, I, P, P, P, P)
 _PACKED_ARGS = (P, LL, I, I, P, P, P, P, P, P, P, P, LL, I, I, I, P, P, P, P)
+_SKIP_F32_ARGS = (P, LL, I, P, P, P, P, P, P, P, LL, I, I, I, I, P, P, P, P)
+_SKIP_PACKED_ARGS = (P, LL, I, I, P, P, I, P, P, P, P, P, P, P, LL, I, I, I, I,
+                     P, P, P, P)
+_TIERED_ARGS = (P, P, LL, I, I, I, I, P, P, P, P, P, P, P, P, P, LL, I, I, I,
+                P, P, P, P)
 METRICS = {"l2": 0, "ip": 1}
+SMEM_BLOCK_MAX = 232_448     # shared memory one block can use on Hopper
+SKIP_WARPS = 8               # warps per block of the skip-DMA kernels
+
+
+def skip_warps(bytes_per_warp: int, fixed: int = 0) -> int:
+    """Warps per block of a skip-DMA kernel: up to :data:`SKIP_WARPS`, as
+    many as fit their landing buffers (``bytes_per_warp`` each, after
+    ``fixed`` bytes of tables) in a block's shared memory; raises when not
+    even one fits."""
+    warps = min(SKIP_WARPS, (SMEM_BLOCK_MAX - fixed) // bytes_per_warp)
+    if warps < 1:
+        raise ValueError(f"a warp's landing buffer of {bytes_per_warp} B (after "
+                         f"{fixed} B of tables) exceeds the {SMEM_BLOCK_MAX} B "
+                         "of shared memory a block can use")
+    return warps
+
+
+def block_spans(cfg: dfl.DfloatConfig, seg: int) -> list[tuple[int, int]]:
+    """The word span ``[w0, w1)`` of each FEE block of ``seg`` features in
+    ``cfg``'s packed row, the carry word of a field that spans two words
+    included (the reference's ``_block_positions``)."""
+    pos, _ = dfl.feature_positions(cfg)
+    spans = []
+    for k in range(cfg.dim // seg):
+        p = pos[k * seg:(k + 1) * seg]
+        spans.append((min(wi for wi, _, _ in p),
+                      max(wi + (ofs + sg.width > 32) for wi, ofs, sg in p) + 1))
+    return spans
+
+
+@functools.lru_cache(maxsize=64)
+def _span_table(cfg: dfl.DfloatConfig, seg: int, device: torch.device):
+    spans = block_spans(cfg, seg)
+    return (torch.tensor(spans, dtype=torch.int32, device=device),
+            max(w1 - w0 for w0, w1 in spans))
 
 
 def _check_lanes(ids, q, threshold, alpha, beta, margin, lane_mask, dim, seg,
@@ -131,5 +186,108 @@ def fee_distance_packed(xp, ids, q, threshold, alpha, beta, margin, *,
     return dist, rej, segs
 
 
+def fee_distance_skipdma(db, ids, q, threshold, alpha, beta, margin, *,
+                         seg: int, metric: str = "l2", lane_mask=None):
+    """:func:`fee_distance`'s contract through warp-gated ``cp.async`` copies
+    of each live lane's segment; bit-identical to :func:`fee_distance`.  CPU
+    tensors take the plain version."""
+    if db.device.type == "cpu":
+        return ref.fee_distance_gather_ref(db, ids, q, threshold, alpha, beta,
+                                           margin, seg=seg, metric=metric,
+                                           lane_mask=lane_mask)
+    if db.dtype != torch.float32 or db.dim() != 2 or not db.is_contiguous():
+        raise ValueError(f"db must be a contiguous (N, D) float32 tensor, got "
+                         f"{db.dtype} {tuple(db.shape)}")
+    n_q, lanes = _check_lanes(ids, q, threshold, alpha, beta, margin,
+                              lane_mask, db.shape[1], seg, metric)
+    warps = skip_warps(32 * seg * 4)
+    dist, rej, segs = _outputs(n_q, lanes, db.device)
+    fn = _build.function(_SKIP_LIB, "naszip_fee_skipdma_f32", _SKIP_F32_ARGS)
+    code = fn(db.data_ptr(), db.shape[0], db.shape[1], ids.data_ptr(),
+              _build.ptr(lane_mask), q.data_ptr(), threshold.data_ptr(),
+              alpha.data_ptr(), beta.data_ptr(), margin.data_ptr(), n_q, lanes,
+              seg, METRICS[metric], warps, dist.data_ptr(), rej.data_ptr(),
+              segs.data_ptr(), _build.stream_ptr(db))
+    _build.check(_SKIP_LIB, "fee_distance_skipdma", code)
+    fee_distance_skipdma.launches += 1
+    return dist, rej, segs
+
+
+def fee_distance_packed_skipdma(xp, ids, q, threshold, alpha, beta, margin, *,
+                                dfloat_cfg: dfl.DfloatConfig, seg: int,
+                                metric: str = "l2", lane_mask=None):
+    """:func:`fee_distance_packed`'s contract through warp-gated ``cp.async``
+    copies of each live lane's block word span; bit-identical to
+    :func:`fee_distance_packed`.  CPU tensors take the plain version."""
+    if xp.device.type == "cpu":
+        return ref.fee_distance_packed_gather_ref(
+            xp, ids, q, threshold, alpha, beta, margin, dfloat_cfg=dfloat_cfg,
+            seg=seg, metric=metric, lane_mask=lane_mask)
+    check_packed(xp, dfloat_cfg)
+    dim = dfloat_cfg.dim
+    n_q, lanes = _check_lanes(ids, q, threshold, alpha, beta, margin,
+                              lane_mask, dim, seg, metric)
+    spans, max_span = _span_table(dfloat_cfg, seg, xp.device)
+    s_even = dim // seg + (dim // seg) % 2
+    warps = skip_warps(32 * max_span * 4, fixed=dim * 16 + s_even * 8)
+    dist, rej, segs = _outputs(n_q, lanes, xp.device)
+    fn = _build.function(_SKIP_LIB, "naszip_fee_skipdma_packed",
+                         _SKIP_PACKED_ARGS)
+    code = fn(xp.data_ptr(), xp.shape[0], xp.shape[1], dim,
+              decode_table(dfloat_cfg, xp.device).data_ptr(), spans.data_ptr(),
+              max_span, ids.data_ptr(), _build.ptr(lane_mask), q.data_ptr(),
+              threshold.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
+              margin.data_ptr(), n_q, lanes, seg, METRICS[metric], warps,
+              dist.data_ptr(), rej.data_ptr(), segs.data_ptr(),
+              _build.stream_ptr(xp))
+    _build.check(_SKIP_LIB, "fee_distance_packed_skipdma", code)
+    fee_distance_packed_skipdma.launches += 1
+    return dist, rej, segs
+
+
+def fee_distance_tiered(xc, xr, ids, q, threshold, alpha, beta, margin, *,
+                        coarse_cfg: dfl.DfloatConfig,
+                        resid_cfg: dfl.DfloatConfig, seg: int,
+                        metric: str = "l2", lane_mask=None):
+    """Fused two-tier decode + early-exit scores of the tier rows ``xc[ids]``
+    ((N, Wc) words of ``coarse_cfg``) and ``xr[ids]`` ((N, Wr) words of
+    ``resid_cfg``): a lane reads residual words only for the segments it
+    reaches past the coarse tier.  Bit-identical to
+    :func:`fee_distance_packed` over the parent layout's rows at any split,
+    0 and S included.  CPU tensors take the plain version."""
+    if xc.device.type == "cpu":
+        return ref.fee_distance_tiered_gather_ref(
+            xc, xr, ids, q, threshold, alpha, beta, margin,
+            coarse_cfg=coarse_cfg, resid_cfg=resid_cfg, seg=seg,
+            metric=metric, lane_mask=lane_mask)
+    check_packed(xc, coarse_cfg)
+    check_packed(xr, resid_cfg)
+    if xr.device != xc.device or xr.shape[0] != xc.shape[0]:
+        raise ValueError(f"tier rows disagree: coarse {tuple(xc.shape)} on "
+                         f"{xc.device}, residual {tuple(xr.shape)} on {xr.device}")
+    dc, dim = coarse_cfg.dim, coarse_cfg.dim + resid_cfg.dim
+    if dim > MAX_TABLE_DIM:
+        raise ValueError(f"dim {dim} > {MAX_TABLE_DIM}: decode tables exceed "
+                         "the kernel's shared memory")
+    n_q, lanes = _check_lanes(ids, q, threshold, alpha, beta, margin,
+                              lane_mask, dim, seg, metric)
+    dist, rej, segs = _outputs(n_q, lanes, xc.device)
+    fn = _build.function(_TIER_LIB, "naszip_fee_tiered", _TIERED_ARGS)
+    code = fn(xc.data_ptr(), xr.data_ptr(), xc.shape[0], xc.shape[1],
+              xr.shape[1], dc, dim,
+              decode_table(coarse_cfg, xc.device).data_ptr(),
+              decode_table(resid_cfg, xc.device).data_ptr(), ids.data_ptr(),
+              _build.ptr(lane_mask), q.data_ptr(), threshold.data_ptr(),
+              alpha.data_ptr(), beta.data_ptr(), margin.data_ptr(), n_q, lanes,
+              seg, METRICS[metric], dist.data_ptr(), rej.data_ptr(),
+              segs.data_ptr(), _build.stream_ptr(xc))
+    _build.check(_TIER_LIB, "fee_distance_tiered", code)
+    fee_distance_tiered.launches += 1
+    return dist, rej, segs
+
+
 fee_distance.launches = 0
 fee_distance_packed.launches = 0
+fee_distance_skipdma.launches = 0
+fee_distance_packed_skipdma.launches = 0
+fee_distance_tiered.launches = 0

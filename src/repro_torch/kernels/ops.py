@@ -3,19 +3,32 @@
 ``backend`` takes the JAX package's ``fee_backend`` strings, so a reference
 ``SearchParams`` works unchanged:
 
-  * ``auto`` / ``pallas`` — the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (the wrapper decides from the tensor's device);
-  * ``jnp`` — the plain PyTorch version on either device (the comparison run
-    of ``chip_smoke.py``);
-  * ``pallas_skip_dma`` — the manual-DMA TPU kernels (``fee_distance.py::
-    fee_distance_skipdma_pallas``, ``fee_distance_packed_pallas(skip_dma=
-    True)``), not ported yet: ROADMAP queue B, item 4.
+  * ``auto`` / ``pallas`` — the CUDA kernels for CUDA tensors, the plain
+    versions for CPU tensors (each wrapper decides from the tensor's device);
+  * ``pallas_skip_dma`` — the same, with the f32 and packed FEE scores taken
+    by the skip-DMA kernels (``fee_distance_skipdma``,
+    ``fee_distance_packed_skipdma``: warp-gated ``cp.async`` copies, the
+    counterparts of the TPU's manual-DMA kernels).  The tiered kernel gates
+    its residual reads itself under every backend, and ``dfloat_unpack_rows``
+    launches the ``dfloat_unpack`` kernel here too: the reference takes its
+    jnp decoder there, but the port runs no plain version on the card and
+    the bits are the same;
+  * ``jnp`` — the plain PyTorch versions on either device (the comparison
+    run of ``chip_smoke.py``).
 
 A default call never takes the plain version on a CUDA tensor.  The
 tombstone fold (the reference's ``_fold_lane_mask``) is ``ref.fold_lane_mask``
-on the plain path and happens inside the kernels on the card.
+on the plain path and happens inside the kernels on the card.  One contract
+difference from the reference, in an output nothing reads: a dead lane's
+``dist`` is 0 here (the partial score of the zero segments it streams),
+where the reference leaves whatever its backend computed.  Matching that
+would mean reading the bytes of every lane the search masks out, non-fresh
+lanes included; the search sets every rejected lane's candidate distance to
+BIG either way.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core import dfloat as dfl
 from repro_torch.kernels import dfloat_unpack as unpack_kernel
@@ -26,10 +39,6 @@ BACKENDS = ("auto", "jnp", "pallas", "pallas_skip_dma")
 
 
 def _plain(backend: str) -> bool:
-    if backend == "pallas_skip_dma":
-        raise NotImplementedError(
-            'fee_backend="pallas_skip_dma" (the manual-DMA TPU kernels) is not '
-            "ported to CUDA yet: see ROADMAP.md queue B, item 4")
     if backend not in BACKENDS:
         raise ValueError(f"backend={backend!r}; expected one of {BACKENDS}")
     return backend == "jnp"
@@ -43,7 +52,12 @@ def fee_distance(db, ids, q, threshold, alpha, beta, margin, *, seg: int,
     rejected lanes.  ``lane_mask`` ((Q, L) bool, False = dead lane) joins the
     exit mask before any segment is charged.
     """
-    fn = ref.fee_distance_gather_ref if _plain(backend) else fee_kernel.fee_distance
+    if _plain(backend):
+        fn = ref.fee_distance_gather_ref
+    elif backend == "pallas_skip_dma":
+        fn = fee_kernel.fee_distance_skipdma
+    else:
+        fn = fee_kernel.fee_distance
     return fn(db, ids, q, threshold, alpha, beta, margin, seg=seg,
               metric=metric, lane_mask=lane_mask)
 
@@ -55,10 +69,32 @@ def fee_distance_packed(xp, ids, q, threshold, alpha, beta, margin, *,
     """Fused Dfloat decode + early-exit scores straight from the packed
     bitstream rows ``xp[ids]`` — bit-compatible with :func:`fee_distance`
     over ``dfloat.emulate_db`` data."""
-    fn = (ref.fee_distance_packed_gather_ref if _plain(backend)
-          else fee_kernel.fee_distance_packed)
+    if _plain(backend):
+        fn = ref.fee_distance_packed_gather_ref
+    elif backend == "pallas_skip_dma":
+        fn = fee_kernel.fee_distance_packed_skipdma
+    else:
+        fn = fee_kernel.fee_distance_packed
     return fn(xp, ids, q, threshold, alpha, beta, margin, dfloat_cfg=dfloat_cfg,
               seg=seg, metric=metric, lane_mask=lane_mask)
+
+
+def fee_distance_tiered(xc, xr, ids, q, threshold, alpha, beta, margin, *,
+                        coarse_cfg: dfl.DfloatConfig,
+                        resid_cfg: dfl.DfloatConfig, seg: int,
+                        metric: str = "l2", backend: str = "auto",
+                        lane_mask=None):
+    """Tiered fused decode + early-exit scores: the coarse-tier rows
+    ``xc[ids]`` make the exit decisions, residual-tier rows ``xr[ids]`` are
+    read only by lanes that survive them.  Bit-identical to
+    :func:`fee_distance_packed` over the parent layout's rows at any split;
+    a lane fetched the residual tier iff ``segs_used > coarse_cfg.dim //
+    seg``."""
+    fn = (ref.fee_distance_tiered_gather_ref if _plain(backend)
+          else fee_kernel.fee_distance_tiered)
+    return fn(xc, xr, ids, q, threshold, alpha, beta, margin,
+              coarse_cfg=coarse_cfg, resid_cfg=resid_cfg, seg=seg,
+              metric=metric, lane_mask=lane_mask)
 
 
 def dfloat_unpack_rows(packed, cfg: dfl.DfloatConfig, *, backend: str = "auto"):
@@ -66,6 +102,19 @@ def dfloat_unpack_rows(packed, cfg: dfl.DfloatConfig, *, backend: str = "auto"):
     if _plain(backend):
         return ref.dfloat_unpack_ref(packed, cfg)
     return unpack_kernel.dfloat_unpack(packed, cfg)
+
+
+def dfloat_unpack_tiered_rows(xc, xr, coarse_cfg: dfl.DfloatConfig,
+                              resid_cfg: dfl.DfloatConfig, *,
+                              backend: str = "auto"):
+    """Decode a (coarse, residual) tier-row pair back to (C, D) f32 —
+    bit-exact vs :func:`dfloat_unpack_rows` on the parent layout's rows.  An
+    empty tier decodes nothing."""
+    if _plain(backend):
+        return ref.dfloat_unpack_tiered_ref(xc, xr, coarse_cfg, resid_cfg)
+    parts = [unpack_kernel.dfloat_unpack(x, c)
+             for x, c in ((xc, coarse_cfg), (xr, resid_cfg)) if c.dim]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 # the Dfloat process module over a whole packed DB is the same decode

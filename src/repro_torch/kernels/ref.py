@@ -2,9 +2,14 @@
 
 They run on any device.  The kernel wrappers take them for CPU tensors, the
 CPU tests hold them against the JAX package's kernels and oracles, and
-``chip_smoke.py`` holds each kernel against them on the card.
+``chip_smoke.py`` holds each kernel against them on the card.  The skip-DMA
+kernels compute the contracts of ``fee_distance_gather_ref`` and
+``fee_distance_packed_gather_ref``; they differ only in which bytes they
+move, so they have no plain version of their own.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -80,6 +85,47 @@ def fee_distance_packed_gather_ref(xp, ids, q, threshold, alpha, beta, margin,
     out = fee_distance_packed_ref(q, xp[ids.long()], threshold, alpha, beta,
                                   margin, dfloat_cfg=dfloat_cfg, seg=seg,
                                   metric=metric)
+    return fold_lane_mask(out, lane_mask)
+
+
+def dfloat_unpack_tiered_ref(xc, xr, coarse_cfg: dfl.DfloatConfig,
+                             resid_cfg: dfl.DfloatConfig):
+    """Decode a (coarse (C, Wc), residual (C, Wr)) tier-row pair back to
+    (C, D) f32: each tier is its own burst-aligned bitstream, and
+    ``dfloat.split_config`` keeps every feature's format, so the result
+    equals the parent layout's decode bit for bit."""
+    return torch.cat([dfl.unpack_rows(xc, coarse_cfg),
+                      dfl.unpack_rows(xr, resid_cfg)], dim=1)
+
+
+def fee_distance_tiered_ref(q, xc, xr, threshold, alpha, beta, margin, *,
+                            coarse_cfg: dfl.DfloatConfig,
+                            resid_cfg: dfl.DfloatConfig, seg, metric="l2"):
+    """Tiered contract: decode both tiers (``xc`` (..., C, Wc), ``xr``
+    (..., C, Wr)), concatenate them along the feature axis and score with the
+    exact FEE arithmetic of :func:`fee_distance_ref` — bit-identical to
+    :func:`fee_distance_packed_ref` over the parent layout's rows at any
+    split.  Which residual words a lane fetches is a traffic property of the
+    kernel; the arithmetic here is unconditional."""
+    *lead, c, wc = xc.shape
+    rows = math.prod(lead) * c
+    x = dfloat_unpack_tiered_ref(xc.reshape(rows, wc),
+                                 xr.reshape(rows, xr.shape[-1]),
+                                 coarse_cfg, resid_cfg).reshape(*lead, c, -1)
+    return fee_distance_ref(q, x, threshold, alpha, beta, margin,
+                            seg=seg, metric=metric)
+
+
+def fee_distance_tiered_gather_ref(xc, xr, ids, q, threshold, alpha, beta,
+                                   margin, *, coarse_cfg: dfl.DfloatConfig,
+                                   resid_cfg: dfl.DfloatConfig, seg,
+                                   metric="l2", lane_mask=None):
+    """Plain version of the batched ``fee_distance_tiered`` kernel over the
+    tier rows ``xc[ids]`` and ``xr[ids]``."""
+    i = ids.long()
+    out = fee_distance_tiered_ref(q, xc[i], xr[i], threshold, alpha, beta,
+                                  margin, coarse_cfg=coarse_cfg,
+                                  resid_cfg=resid_cfg, seg=seg, metric=metric)
     return fold_lane_mask(out, lane_mask)
 
 

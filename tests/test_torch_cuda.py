@@ -4,8 +4,11 @@ These need an NVIDIA GPU and ``nvcc`` (the kernels are built at first use);
 without a card they skip.  The file imports no JAX, so it runs on the machine
 with the card:  ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 Tolerance as in ``repro_torch.kernels.check``; the decode and packed-vs-f32
-scores are bit-exact.  ``SCALAR_SHAPES`` (seg % 4 != 0) run the f32 kernel's
-one-float-at-a-time loads, every other shape its float4 loads.
+scores are bit-exact, and so are the skip-DMA kernels against the kernels
+whose contract they share and the tiered kernel at every split against the
+packed kernel over the parent rows.  ``SCALAR_SHAPES`` (seg % 4 != 0) run the
+f32 kernels' one-float-at-a-time loads and 4-byte copies, every other shape
+their float4 loads and 16-byte copies.
 """
 import numpy as np
 import pytest
@@ -16,7 +19,8 @@ from repro_torch.core import dfloat as dfl
 from repro_torch.kernels import dfloat_unpack as unpack_kernel
 from repro_torch.kernels import fee_distance as fee_kernel
 from repro_torch.kernels import ref
-from repro_torch.kernels.check import SCALAR_SHAPES, SHAPES, compare_fee, near_threshold
+from repro_torch.kernels.check import (SCALAR_SHAPES, SHAPES, compare_fee, near_threshold,
+                                       random_layout)
 
 
 @pytest.fixture
@@ -55,6 +59,64 @@ def test_cuda_fee_kernels_match_plain(cuda, c, d, seg, metric):
                                   metric=metric, lane_mask=mask)
     for a, b in zip(pk, f32):          # packed == f32 over the decoded rows
         assert torch.equal(a, b)
+
+
+def _lanes(cuda, c, d, seg, metric):
+    """Three queries over C lanes of random ids into (C, D) rows, 80% alive."""
+    q, x, thr, alpha, beta, margin = inputs(c, d, seg, metric, c + d + 1)
+    rng = np.random.default_rng(c + 1)
+    ids = torch.from_numpy(rng.integers(0, c, (3, c)).astype(np.int32)).to(cuda)
+    qs = torch.from_numpy(np.stack([q, -q, q * 0.5])).to(cuda)
+    thrs = torch.full((3,), float(thr), device=cuda)
+    fee = [torch.from_numpy(a).to(cuda) for a in (alpha, beta, margin)]
+    mask = torch.from_numpy(rng.random((3, c)) < 0.8).to(cuda)
+    return rng, x, (ids, qs, thrs, *fee), mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d,seg", SHAPES + SCALAR_SHAPES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_skipdma_kernels_match_plain(cuda, c, d, seg, metric):
+    rng, x, args, mask = _lanes(cuda, c, d, seg, metric)
+    kw = dict(seg=seg, metric=metric, lane_mask=mask)
+    xt = torch.from_numpy(x).to(cuda)
+    near = near_threshold(xt[args[0].long()], *args[1:], seg=seg, metric=metric)
+    got = fee_kernel.fee_distance_skipdma(xt, *args, **kw)
+    compare_fee(got, ref.fee_distance_gather_ref(xt, *args, **kw), near)
+    for a, b in zip(got, fee_kernel.fee_distance(xt, *args, **kw)):
+        assert torch.equal(a, b)
+    cfg, _ = random_layout(rng, d, x)
+    packed = torch.from_numpy(dfl.pack_db(x, cfg).view(np.int32)).to(cuda)
+    xq = unpack_kernel.dfloat_unpack(packed, cfg)
+    near_q = near_threshold(xq[args[0].long()], *args[1:], seg=seg, metric=metric)
+    pk = fee_kernel.fee_distance_packed_skipdma(packed, *args, dfloat_cfg=cfg, **kw)
+    compare_fee(pk, ref.fee_distance_packed_gather_ref(packed, *args, dfloat_cfg=cfg, **kw),
+                near_q)
+    for a, b in zip(pk, fee_kernel.fee_distance_packed(packed, *args, dfloat_cfg=cfg, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d,seg", SHAPES + SCALAR_SHAPES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_tiered_kernel_every_split(cuda, c, d, seg, metric):
+    rng, x, args, mask = _lanes(cuda, c, d, seg, metric)
+    kw = dict(seg=seg, metric=metric, lane_mask=mask)
+    cfg, _ = random_layout(rng, d, x)
+    packed = torch.from_numpy(dfl.pack_db(x, cfg).view(np.int32)).to(cuda)
+    xq = unpack_kernel.dfloat_unpack(packed, cfg)
+    near = near_threshold(xq[args[0].long()], *args[1:], seg=seg, metric=metric)
+    want_bits = fee_kernel.fee_distance_packed(packed, *args, dfloat_cfg=cfg, **kw)
+    for split in range(d // seg + 1):
+        ccfg, rcfg = dfl.split_config(cfg, split * seg)
+        tiers = [torch.from_numpy(t.view(np.int32)).to(cuda)
+                 for t in dfl.pack_tiers(x, cfg, split * seg)]
+        tkw = dict(coarse_cfg=ccfg, resid_cfg=rcfg, **kw)
+        got = fee_kernel.fee_distance_tiered(*tiers, *args, **tkw)
+        compare_fee(got, ref.fee_distance_tiered_gather_ref(*tiers, *args, **tkw), near,
+                    f"fee_distance_tiered split={split}")
+        for a, b in zip(got, want_bits):
+            assert torch.equal(a, b), split
 
 
 @pytest.mark.cuda

@@ -167,19 +167,59 @@ def test_lane_mask_fold_vs_jax(metric):
 
 
 def test_ops_routing_on_cpu():
-    """CPU tensors take the plain version (no launch is counted); "jnp"
-    selects it explicitly; the manual-DMA backend is not ported."""
+    """CPU tensors take the plain version under every backend (no launch is
+    counted); "jnp" selects it explicitly; an unknown backend raises."""
     c, d, seg = 40, 64, 16
     q, x, thr, alpha, beta, margin = _inputs(c, d, seg, "l2", 5)
-    before = fee_kernel.fee_distance.launches
+    kernels = (fee_kernel.fee_distance, fee_kernel.fee_distance_packed,
+               fee_kernel.fee_distance_skipdma, fee_kernel.fee_distance_packed_skipdma,
+               fee_kernel.fee_distance_tiered, unpack_kernel.dfloat_unpack)
+    before = [k.launches for k in kernels]
     auto = _port_fee(q, x, thr, alpha, beta, margin, seg, "l2")
-    assert fee_kernel.fee_distance.launches == before
     ids = torch.arange(c, dtype=torch.int32)[None]
     qt, xt, at, bt, mt = _t(q, x, alpha, beta, margin)
-    plain = ops.fee_distance(xt, ids, qt[None], torch.tensor([thr]), at, bt, mt,
-                             seg=seg, backend="jnp")
-    for a, b in zip(auto, plain):
-        assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="queue B"):
-        ops.fee_distance(xt, ids, qt[None], torch.tensor([thr]), at, bt, mt,
-                         seg=seg, backend="pallas_skip_dma")
+    args = (ids, qt[None], torch.tensor([thr]), at, bt, mt)
+    plain = ops.fee_distance(xt, *args, seg=seg, backend="jnp")
+    skip = ops.fee_distance(xt, *args, seg=seg, backend="pallas_skip_dma")
+    cfg = dfl.make_config(d, [(16, 5, 24), (12, 4, 40)], x)
+    packed = torch.from_numpy(dfl.pack_db(x, cfg).view(np.int32))
+    tiers = [torch.from_numpy(t.view(np.int32)) for t in dfl.pack_tiers(x, cfg, 32)]
+    tier_cfgs = dfl.split_config(cfg, 32)
+    for backend in ("auto", "pallas_skip_dma"):
+        pk = ops.fee_distance_packed(packed, *args, dfloat_cfg=cfg, seg=seg,
+                                     backend=backend)
+        tr = ops.fee_distance_tiered(*tiers, *args, coarse_cfg=tier_cfgs[0],
+                                     resid_cfg=tier_cfgs[1], seg=seg, backend=backend)
+        for a, b in zip(pk, tr):
+            assert torch.equal(a, b)
+        ops.dfloat_unpack_rows(packed, cfg, backend=backend)
+    assert [k.launches for k in kernels] == before
+    for a, b, s in zip(auto, plain, skip):
+        assert torch.equal(a, b) and torch.equal(a, s)
+    with pytest.raises(ValueError, match="backend"):
+        ops.fee_distance(xt, *args, seg=seg, backend="pallas_dma")
+
+
+@given(n_cases=8)
+def test_block_spans_match_jax_block_positions(draw):
+    """The skip-DMA packed kernel copies each FEE block's word span: the
+    reference's ``_block_positions`` spans, carry words included."""
+    from repro.kernels.fee_distance import _block_positions
+
+    d = draw.choice([32, 64, 128], "d")
+    seg = draw.choice([4, 8, 16], "seg")
+    x = draw.array((8, d), scale=1.0)
+    jcfg, cfg = _random_layout(draw, d, x)
+    blocks, _ = _block_positions(jcfg, seg)
+    assert fee_kernel.block_spans(cfg, seg) == [(w0, w1) for _, w0, w1 in blocks]
+
+
+def test_skip_warps_fit_shared_memory():
+    """Eight warps where their landing buffers fit a block's shared memory,
+    fewer where they do not, and a refusal where not even one does."""
+    assert fee_kernel.skip_warps(32 * 16 * 4) == 8                  # seg = 16
+    per_warp = 32 * 512 * 4                                          # seg = 512
+    assert fee_kernel.skip_warps(per_warp) == fee_kernel.SMEM_BLOCK_MAX // per_warp == 3
+    assert fee_kernel.skip_warps(per_warp, fixed=per_warp) == 2
+    with pytest.raises(ValueError, match="shared memory"):
+        fee_kernel.skip_warps(fee_kernel.SMEM_BLOCK_MAX + 4)

@@ -202,11 +202,39 @@ def test_exclude_dead_matches_jax():
 
 
 def test_unported_paths_raise_naming_the_queue(pair):
+    """The backends not ported yet raise naming their queue; tiered storage
+    and the skip-DMA backend build searchers (their search is held against
+    the JAX package in ``test_torch_tiered.py`` and below)."""
     _, _, port, *_ = pair["l2"]
-    with pytest.raises(NotImplementedError, match="queue"):
-        port.searcher("local", dataclasses.replace(BASE, storage="tiered"))
-    with pytest.raises(NotImplementedError, match="queue B"):
-        port.searcher("local", dataclasses.replace(BASE, fee_backend="pallas_skip_dma"))
+    port.searcher("local", dataclasses.replace(BASE, storage="tiered"))
+    port.searcher("local", dataclasses.replace(BASE, fee_backend="pallas_skip_dma"))
     for backend in ("sharded", "ndpsim"):
         with pytest.raises(NotImplementedError, match="queue A"):
             port.searcher(backend, BASE)
+
+
+@pytest.mark.parametrize("storage", ["f32", "packed"])
+def test_skip_dma_search_matches_jax(pair, storage):
+    """``fee_backend="pallas_skip_dma"`` against the JAX package's manual-DMA
+    kernels (interpret mode, so few queries at a small ef, as
+    ``tests/test_packed.py`` runs them), with this file's tolerances; within
+    the port the skip-DMA kernels' contract is the default backend's, so the
+    ids and distances are the same."""
+    db, ref, port, *_ = pair["l2"]
+    params = dataclasses.replace(BASE, ef=16, storage=storage,
+                                 fee_backend="pallas_skip_dma")
+    q = db.queries[:4]
+    want = ref.search(q, jix.SearchParams(**dataclasses.asdict(params)))
+    got = port.search(q, params)
+    assert _overlap(got.ids, want.ids) >= 0.99
+    for gi, gd, wi, wd in zip(got.ids, got.dists, want.ids, want.dists):
+        shared = np.intersect1d(gi[gi >= 0], wi[wi >= 0])
+        g = dict(zip(gi.tolist(), gd.tolist()))
+        w = dict(zip(wi.tolist(), wd.tolist()))
+        np.testing.assert_allclose([g[i] for i in shared], [w[i] for i in shared],
+                                   rtol=RTOL, atol=ATOL)
+    for key in ("hops", "n_eval", "dims"):
+        assert np.mean(getattr(got, key) == getattr(want, key)) >= 0.95, key
+    auto = port.search(q, dataclasses.replace(params, fee_backend="auto"))
+    assert np.array_equal(got.ids, auto.ids)
+    assert np.array_equal(got.dists, auto.dists)
