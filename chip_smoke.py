@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases, each of which fails the run when its check fails:
 
 1. device and power limit; build every CUDA kernel from
-   ``src/repro_torch/kernels/csrc`` (``nvcc``, sm_90a);
+   ``src/repro_torch/kernels/csrc`` (``nvcc``, sm_90a); the packed FEE
+   kernels must have no stack frame (their staged words stay in registers);
 2. each kernel against its plain PyTorch version on the card at edge shapes
    (``repro_torch.kernels.check``: the ``SHAPES`` of ``tests/test_kernels.py``
    and two with seg % 4 != 0, both metrics, random Dfloat layouts); the
@@ -31,10 +32,12 @@ Phases, each of which fails the run when its check fails:
    with the kernel path >= 0.99 for each storage;
 5. each kernel against its plain version at the main path's shapes, timed
    with CUDA events beside its bound (bytes over 3.35 TB/s, operations over
-   67 TFLOP/s float32), and the f32 kernel's float4 loads against its
-   one-float loads;
-6. ``torch.profiler`` over one f32 search batch: device-busy time against
-   the batch's wall time, and the costliest kernels.
+   67 TFLOP/s float32); the f32 kernel's float4 loads against its one-float
+   loads (``fee_distance_loads``), the packed kernel's 16 B burst loads
+   against its 4 B loads (``packed_loads``), and the two packed kernels and
+   the tiered kernel over rows at a 256 B and a 272 B pitch (``pitch_ms``);
+6. ``torch.profiler`` over one f32 and one packed search batch: device-busy
+   time against the batch's wall time, and the costliest kernels.
 
 The second-to-last line is the ``kernels`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  ``--n`` / ``--queries`` cut the data for a
@@ -64,6 +67,8 @@ REPEATS = 3                        # timed search calls, each over every query
 SLEEP_CYCLES = 100_000_000         # ~50 ms at the H100's clocks: time to queue a timed run
 PORT_KERNELS = ("fee_f32_kernel", "fee_packed_kernel", "dfloat_unpack_kernel",
                 "fee_skipdma_f32_kernel", "fee_skipdma_packed_kernel", "fee_tiered_kernel")
+# kernels whose staged words must stay in registers (no local-memory frame)
+NO_FRAME_KERNELS = ("fee_packed_kernel", "fee_skipdma_packed_kernel")
 REPLACES = {
     "fee_distance": "src/repro/kernels/fee_distance.py:106",
     "fee_distance_skipdma": "src/repro/kernels/fee_distance.py:192",
@@ -129,6 +134,31 @@ def fee_inputs(db, ids, q, dev, metric, seg, seed):
 
 def same_bits(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def stack_frames(logs):
+    """{function: bytes of stack frame} from the ptxas ``-v`` output of
+    every source (mangled names)."""
+    frames = {}
+    for text in logs.values():
+        name = None
+        for line in text.splitlines():
+            if "Function properties for" in line:
+                name = line.split("Function properties for")[1].strip()
+            elif name and "bytes stack frame" in line:
+                frames[name] = int(line.split("bytes stack frame")[0].split()[-1])
+                name = None
+    return frames
+
+
+def row_copy(xp, pad=0, offset=0):
+    """``xp`` (N, W) copied into a row view at a pitch of W + ``pad`` words
+    whose base lies ``offset`` words past a 16 B aligned allocation."""
+    n, w = xp.shape
+    buf = torch.empty(offset + n * (w + pad), dtype=xp.dtype, device=xp.device)
+    rows = buf.as_strided((n, w), (w + pad, 1), offset)
+    rows.copy_(xp)
+    return rows
 
 
 def edge_shape_checks(dev):
@@ -341,6 +371,19 @@ def main_path_kernels(index, db, res64, dev, launches):
     err_pk, _, _ = compare_fee(got_pk, want_p, near, "fee_distance_packed_skipdma (main path)")
     check(same_bits(got_pk, got_p), "fee_distance_packed_skipdma (main path): not "
           "bit-identical to fee_distance_packed")
+    # the same launch through the 4 B loads: rows 4 bytes off 16-byte
+    # alignment turn the 16 B burst loads off
+    xp_off = row_copy(xp, offset=1)
+    for name, fn in (("fee_distance_packed", fee_kernel.fee_distance_packed),
+                     ("fee_distance_packed_skipdma", fee_kernel.fee_distance_packed_skipdma)):
+        check(same_bits(fn(xp_off, *args, **pkw), got_p), f"{name} 4 B loads: not "
+              "bit-identical to 16 B loads")
+    ploads = {"burst16_ms": [], "word4_ms": []}
+    for key in ("burst16_ms", "word4_ms", "word4_ms", "burst16_ms"):   # in turns
+        src = xp if key == "burst16_ms" else xp_off
+        ploads[key].append(time_ms(lambda: fee_kernel.fee_distance_packed(src, *args, **pkw)))
+    log(json.dumps({"packed_loads": ploads}))
+    del xp_off
 
     got_t = fee_kernel.fee_distance_tiered(*tiers, *args, **tkw)
     check(same_bits(got_t, got_p), "fee_distance_tiered (main path): not bit-identical "
@@ -411,6 +454,25 @@ def main_path_kernels(index, db, res64, dev, launches):
     for name in (*layouts, *reversed(layouts)):
         same_rows[name].append(time_ms(layouts[name]))
     log(json.dumps({"same_rows_ms": same_rows}))
+    # the row pitch: the same words at 256 B (W) and at 272 B (W + 4) per row,
+    # through the two packed kernels and the tiered kernel (the one-field-
+    # per-load design) at split S, in turns
+    wide = row_copy(xp, pad=4)
+    pitched = {
+        "fee_distance_packed": lambda r: fee_kernel.fee_distance_packed(r, *args, **pkw),
+        "fee_distance_packed_skipdma":
+            lambda r: fee_kernel.fee_distance_packed_skipdma(r, *args, **pkw),
+        "tiered_split_S": lambda r: fee_kernel.fee_distance_tiered(
+            r, r[:, :0], *args, coarse_cfg=full, resid_cfg=none, **kw)}
+    pitch = {}
+    for name, fn in pitched.items():
+        check(same_bits(fn(wide), got_p), f"{name} at a 272 B pitch: not bit-identical "
+              "to fee_distance_packed")
+        pitch[name] = {"256B_ms": [], "272B_ms": []}
+        for key, r in (("256B_ms", xp), ("272B_ms", wide), ("272B_ms", wide), ("256B_ms", xp)):
+            pitch[name][key].append(time_ms(lambda: fn(r)))
+    log(json.dumps({"pitch_ms": pitch}))
+    del wide
     return rows
 
 
@@ -537,17 +599,18 @@ def main_path(args, dev, kernels):
     return index, db, res64, launches, rep
 
 
-def profile_search(index, db, dev, p50_ms):
-    """Where one f32 search batch (every query) spends the device's time: the
-    device-busy milliseconds (the sum of the kernels' times on the one
-    stream) against the timed batch's p50 wall time, the port's own kernels'
-    share, and the costliest kernels.  Only the profiler's device-side rows
-    are summed: its CPU-op rows carry their kernels' time too."""
+def profile_search(index, db, dev, p50_ms, storage="f32"):
+    """Where one search batch (every query) over ``storage`` spends the
+    device's time: the device-busy milliseconds (the sum of the kernels'
+    times on the one stream) against the timed batch's p50 wall time, the
+    port's own kernels' share, and the costliest kernels.  Only the
+    profiler's device-side rows are summed: its CPU-op rows carry their
+    kernels' time too."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.index import SearchParams
 
-    run = index.searcher("local", SearchParams(ef=64, k=10), device=dev)
+    run = index.searcher("local", SearchParams(ef=64, k=10, storage=storage), device=dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(db.queries)
     kernels = [e for e in prof.key_averages()
@@ -560,7 +623,8 @@ def profile_search(index, db, dev, p50_ms):
     busy_ms = ms(kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
     log(json.dumps({"profile": {
-        "batch": len(db.queries), "p50_batch_ms": p50_ms, "device_busy_ms": busy_ms,
+        "storage": storage, "batch": len(db.queries), "p50_batch_ms": p50_ms,
+        "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / p50_ms,
         "kernel_launches": sum(e.count for e in kernels),
         "port_kernels_ms": ms(e for e in kernels if any(k in e.key for k in PORT_KERNELS)),
@@ -602,10 +666,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    for stem, text in _build.build_logs().items():
+    logs = _build.build_logs()
+    for stem, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {stem}: {line.strip()}")
+    frames = {name: b for name, b in stack_frames(logs).items()
+              if any(k in name for k in NO_FRAME_KERNELS)}
+    check(frames and not any(frames.values()), f"packed FEE kernels with a stack frame "
+          f"(local memory): {frames}")
+    log(f"packed FEE kernels: {len(frames)} instantiations, no stack frame")
 
     n_edge = edge_shape_checks(dev)
     log(f"edge shapes: {n_edge} cases match their plain versions")
@@ -614,7 +684,8 @@ def main(argv=None) -> int:
     kernels["dfloat_unpack"] = unpack_kernel.dfloat_unpack
     index, db, res64, launches, rep = main_path(args, dev, kernels)
     rows = main_path_kernels(index, db, res64, dev, launches)
-    profile_search(index, db, dev, rep["f32"]["p50_batch_ms"])
+    for storage in ("f32", "packed"):
+        profile_search(index, db, dev, rep[storage]["p50_batch_ms"], storage)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

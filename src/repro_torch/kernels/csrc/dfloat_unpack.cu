@@ -33,7 +33,8 @@ constexpr int kThreads = 256;
 
 extern "C" {
 
-// packed, table and out are device pointers of contiguous tensors.
+// packed holds n_rows rows at a pitch of ``words`` words; table and out are
+// device pointers of contiguous tensors.
 // Returns the cudaError_t of the launch (0 on success).
 int naszip_dfloat_unpack(const void* packed, long long n_rows, int words, int dim,
                          const void* table, void* out, void* stream) {

@@ -14,7 +14,14 @@
 // lane is alive, so exited lanes stop moving bytes.  The work is a gather of
 // 64 B (f32) or ~32 B (packed) per live segment with ~3 flops per byte, far
 // below the card's balance point: the kernels are bound by the bytes the live
-// segments move, and the design's only job is to move no others.
+// segments move, and by the instructions that move and decode them (a lane's
+// loads are independent gathers from a random row).  The f32 kernel reads a
+// segment as float4s; the packed kernel reads a block's covering bursts once,
+// 16 B each (two loads for a 16-feature block of 16-bit fields), into
+// registers and decodes its fields from there (naszip::seg_part_bursts), at
+// compile-time positions where the block's fields share one format: the
+// decode's instructions, not the bytes, then set most of the time, and a
+// field costs a shift, a mask and a multiply-add.
 #include "naszip_common.cuh"
 
 namespace {
@@ -27,13 +34,32 @@ struct F32Row {
   }
 };
 
-// Packed rows are read one field at a time (fields are not word-aligned, so
-// there is no wider load to take).
-struct PackedRow {
+// A lane's packed row.  load() stages the covering bursts of the block with
+// descriptor d = (b0, nb | W << 8, ...): 16 B loads when VEC (16 B aligned
+// row base, a pitch and W that are multiples of 4 words), otherwise the same
+// words 4 B at a time, clipped to the row's W words.  Each word is read once;
+// the staging past the block's bursts is zero.
+template <int NB, bool VEC>
+struct BurstRow {
   const uint32_t* p;
-  const int4* table;  // per-feature decode table, in shared memory
-  __device__ __forceinline__ float load1(int f) const {
-    return naszip::decode_feature(p, table[f]);
+  int words;  // W: the row's words (the pitch may be larger)
+  __device__ __forceinline__ void load(int4 d, uint32_t (&w)[4 * NB + 1]) const {
+    if constexpr (VEC) {
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (c < (d.y & 0xFF)) v = __ldg(reinterpret_cast<const uint4*>(p) + d.x + c);
+        w[4 * c] = v.x;
+        w[4 * c + 1] = v.y;
+        w[4 * c + 2] = v.z;
+        w[4 * c + 3] = v.w;
+      }
+    } else {
+      const int w0 = 4 * d.x, n = min(4 * (d.y & 0xFF), words - w0);
+#pragma unroll
+      for (int i = 0; i < 4 * NB; ++i) w[i] = i < n ? __ldg(p + w0 + i) : 0u;
+    }
+    w[4 * NB] = 0u;
   }
 };
 
@@ -56,25 +82,37 @@ __global__ void fee_f32_kernel(const float* __restrict__ db, long long n_rows, i
   }
 }
 
+template <int NB, bool VEC, bool IP>
 __global__ void fee_packed_kernel(const uint32_t* __restrict__ xp, long long n_rows,
-                                  int words, int dim, const int4* __restrict__ table,
+                                  int words, long long pitch, int dim,
+                                  const int4* __restrict__ table,
+                                  const int4* __restrict__ blocks,
                                   const int* __restrict__ ids,
                                   const uint8_t* __restrict__ alive,
                                   const float* __restrict__ q, const float* __restrict__ thr,
                                   naszip::FeeArgs a, long long n_total, int lanes,
                                   float* __restrict__ dist, uint8_t* __restrict__ rejected,
                                   int* __restrict__ segs_used) {
-  extern __shared__ int4 tab[];
+  extern __shared__ int4 tab[];  // (D,) burst table, then (S,) block descriptors
+  int4* blk = tab + dim;
   for (int f = threadIdx.x; f < dim; f += blockDim.x) tab[f] = table[f];
+  for (int s = threadIdx.x; s < a.n_segs; s += blockDim.x) blk[s] = blocks[s];
   __syncthreads();
   const long long g = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (g >= n_total) return;
   const long long qi = g / lanes;
   int id;
   if (naszip::lane_live(ids, alive, g, n_rows, &id)) {
-    naszip::fee_lane<false>(PackedRow{xp + id * static_cast<long long>(words), tab},
-                            q + qi * dim, __ldg(thr + qi), a, dist + g, rejected + g,
-                            segs_used + g);
+    const BurstRow<NB, VEC> row{xp + id * pitch, words};
+    const float* qr = q + qi * dim;
+    naszip::fee_lane_parts(
+        [&](int s) {
+          const int4 d = blk[s];
+          uint32_t w[4 * NB + 1];
+          row.load(d, w);
+          return naszip::seg_part_bursts<NB, IP>(w, d, tab, qr, s * a.seg, a.seg);
+        },
+        __ldg(thr + qi), a, dist + g, rejected + g, segs_used + g);
   } else {
     naszip::dead_lane(dist + g, rejected + g, segs_used + g);
   }
@@ -93,6 +131,14 @@ naszip::FeeArgs fee_args(const void* alpha, const void* beta, const void* margin
                          int seg, int ip) {
   return naszip::FeeArgs{static_cast<const float*>(alpha), static_cast<const float*>(beta),
                          static_cast<const float*>(margin), dim / seg, seg, ip};
+}
+
+// The fee_packed_kernel built for NB staged bursts: 16 B or 4 B reads, and
+// the metric.
+template <int NB>
+auto pick(bool vec, bool ip) {
+  if (ip) return vec ? &fee_packed_kernel<NB, true, true> : &fee_packed_kernel<NB, false, true>;
+  return vec ? &fee_packed_kernel<NB, true, false> : &fee_packed_kernel<NB, false, false>;
 }
 
 }  // namespace
@@ -131,30 +177,39 @@ int naszip_fee_distance_f32(const void* db, long long n_rows, int dim, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-int naszip_fee_distance_packed(const void* xp, long long n_rows, int words, int dim,
-                               const void* table, const void* ids, const void* alive,
-                               const void* q, const void* thr, const void* alpha,
-                               const void* beta, const void* margin, long long n_q,
-                               int lanes, int seg, int ip, void* dist, void* rejected,
-                               void* segs_used, void* stream) {
+// The packed rows are (n_rows, words) uint32 at a pitch of ``pitch`` words;
+// table is the (dim, 4) burst table and blocks the (S, 4) block descriptors
+// of kernels/fee_distance.py::block_bursts; nb (2, 4, 8 or 16) is the
+// staging size, at least every block's burst count.
+int naszip_fee_distance_packed(const void* xp, long long n_rows, int words, long long pitch,
+                               int dim, const void* table, const void* blocks, int nb,
+                               const void* ids, const void* alive, const void* q,
+                               const void* thr, const void* alpha, const void* beta,
+                               const void* margin, long long n_q, int lanes, int seg, int ip,
+                               void* dist, void* rejected, void* segs_used, void* stream) {
   const long long n_total = n_q * lanes;
   if (n_total == 0) return 0;
   const naszip::FeeArgs a = fee_args(alpha, beta, margin, dim, seg, ip);
+  const bool vec = naszip::burst_loads(xp, pitch, words);
+  decltype(&fee_packed_kernel<2, true, true>) kernel;
+  switch (nb) {
+    case 2: kernel = pick<2>(vec, ip); break;
+    case 4: kernel = pick<4>(vec, ip); break;
+    case 8: kernel = pick<8>(vec, ip); break;
+    case 16: kernel = pick<16>(vec, ip); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = static_cast<size_t>(dim) * sizeof(int4) +
+                      static_cast<size_t>(a.n_segs) * sizeof(int4);
+  const cudaError_t err = naszip::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((n_total + kThreads - 1) / kThreads));
-  const size_t smem = static_cast<size_t>(dim) * sizeof(int4);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t* xp_w = static_cast<const uint32_t*>(xp);
-  const int4* tab = static_cast<const int4*>(table);
-  const int* ids_i = static_cast<const int*>(ids);
-  const uint8_t* alive_b = static_cast<const uint8_t*>(alive);
-  const float* q_f = static_cast<const float*>(q);
-  const float* thr_f = static_cast<const float*>(thr);
-  float* dist_f = static_cast<float*>(dist);
-  uint8_t* rej_b = static_cast<uint8_t*>(rejected);
-  int* segs_i = static_cast<int*>(segs_used);
-  fee_packed_kernel<<<grid, kThreads, smem, s>>>(xp_w, n_rows, words, dim, tab, ids_i, alive_b,
-                                                 q_f, thr_f, a, n_total, lanes, dist_f, rej_b,
-                                                 segs_i);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(xp), n_rows, words, pitch, dim,
+      static_cast<const int4*>(table), static_cast<const int4*>(blocks),
+      static_cast<const int*>(ids), static_cast<const uint8_t*>(alive),
+      static_cast<const float*>(q), static_cast<const float*>(thr), a, n_total, lanes,
+      static_cast<float*>(dist), static_cast<uint8_t*>(rejected), static_cast<int*>(segs_used));
   return static_cast<int>(cudaGetLastError());
 }
 

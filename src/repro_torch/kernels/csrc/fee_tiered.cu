@@ -67,8 +67,9 @@ constexpr int kThreads = 256;
 
 extern "C" {
 
-// All pointers are device pointers of contiguous tensors; alive may be null,
-// and so may an empty tier's rows and table.  Returns the cudaError_t of the
+// All pointers are device pointers of contiguous tensors, except the tier
+// rows, at a pitch of wc and wr words; alive may be null, and so may an empty
+// tier's rows and table.  Returns the cudaError_t of the
 // launch (0 on success).
 int naszip_fee_tiered(const void* xc, const void* xr, long long n_rows, int wc, int wr, int dc,
                       int dim, const void* tc, const void* tr, const void* ids,

@@ -23,12 +23,26 @@ lane of the batch.  ``fee_distance``, ``fee_distance_packed`` and
 inside the thread replaces the TPU's sequential grid axis, and a lane reads
 segment ``s`` of its row only while it is alive — exited and dead lanes stop
 moving bytes (for tiered rows: never touch the residual tier unless they pass
-the coarse one).  The skip-DMA kernels score 32 lanes per warp and copy each
-live lane's segment (or the word span ``[w0, w1)`` of the block's packed
-fields, :func:`block_spans`) into shared memory with ``cp.async`` while the
-warp has a live lane, the counterpart of the TPU's gated ``make_async_copy``.
-All five share one accumulate/exit step, so packed, tiered and skip-DMA
-scores are bit-identical to f32 scores over the emulated rows.
+the coarse one).  The skip-DMA kernels copy each live lane's segment into
+shared memory with ``cp.async`` while its warp's tile has a live lane, the
+counterpart of the TPU's gated ``make_async_copy``.
+
+The two packed kernels read a FEE block through its covering bursts
+(:func:`block_bursts`): the 16 B units of the row, 4-word aligned, that hold
+the block's fields and carry words.  ``fee_distance_packed`` loads them with
+16 B loads into registers, ``fee_distance_packed_skipdma`` copies them with
+16 B ``cp.async`` into a per-lane shared-memory slot, two 32-lane tiles per
+warp so that one tile's copy overlaps the other's decode.  Both decode from
+the staged words in registers: a block whose fields share one format and
+start a burst (:func:`block_formats`; every block of a 16-bit run at
+seg = 16) with shifts fixed at compile time for its width, any other block
+from a burst table whose word index is relative to the block's first burst.
+Where the rows are not 16 B aligned (row base, pitch, or W not a multiple
+of 4 words) they read the same words 4 B at a time.  Packed rows may be a
+row view of a wider matrix (``stride(1) == 1``, ``stride(0) >= W``): the
+kernels take ``stride(0)`` as the row pitch.  All five kernels share one
+accumulate/exit step, so packed, tiered and skip-DMA scores are
+bit-identical to f32 scores over the emulated rows.
 
 Bound on this card: bytes.  A live segment is a 64 B (f32) or ~32 B
 (packed) gather for ~3 flops per feature; the designs read each live
@@ -43,6 +57,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core import dfloat as dfl
@@ -52,15 +67,18 @@ from repro_torch.kernels.dfloat_unpack import MAX_TABLE_DIM, check_packed, decod
 _LIB, _SKIP_LIB, _TIER_LIB = "fee_distance", "fee_skipdma", "fee_tiered"
 P, I, LL = _build.P, _build.I, _build.LL
 _F32_ARGS = (P, LL, I, P, P, P, P, P, P, P, LL, I, I, I, P, P, P, P)
-_PACKED_ARGS = (P, LL, I, I, P, P, P, P, P, P, P, P, LL, I, I, I, P, P, P, P)
+_PACKED_ARGS = (P, LL, I, LL, I, P, P, I, P, P, P, P, P, P, P, LL, I, I, I,
+                P, P, P, P)
 _SKIP_F32_ARGS = (P, LL, I, P, P, P, P, P, P, P, LL, I, I, I, I, P, P, P, P)
-_SKIP_PACKED_ARGS = (P, LL, I, I, P, P, I, P, P, P, P, P, P, P, LL, I, I, I, I,
-                     P, P, P, P)
+_SKIP_PACKED_ARGS = (P, LL, I, LL, I, P, P, I, P, P, P, P, P, P, P, LL, I, I, I,
+                     I, P, P, P, P)
 _TIERED_ARGS = (P, P, LL, I, I, I, I, P, P, P, P, P, P, P, P, P, LL, I, I, I,
                 P, P, P, P)
 METRICS = {"l2": 0, "ip": 1}
 SMEM_BLOCK_MAX = 232_448     # shared memory one block can use on Hopper
 SKIP_WARPS = 8               # warps per block of the skip-DMA kernels
+BURST_WORDS = 4              # a burst: the 16 B unit the packed kernels read
+STAGE_BURSTS = (2, 4, 8, 16)  # bursts a block, as the packed kernels are built
 
 
 def skip_warps(bytes_per_warp: int, fixed: int = 0) -> int:
@@ -89,11 +107,74 @@ def block_spans(cfg: dfl.DfloatConfig, seg: int) -> list[tuple[int, int]]:
     return spans
 
 
+def _widen_constants(sg: dfl.DfloatSegment) -> tuple[int, int]:
+    """``naszip::widen_field``'s mul and ebias of a format: ``1 << (23 -
+    n_man)`` and ``(127 - bias) << 23`` modulo 2^32."""
+    return 1 << (23 - sg.n_man), ((127 - sg.bias) << 23) % (1 << 32)
+
+
+def block_bursts(cfg: dfl.DfloatConfig, seg: int):
+    """The host layout of the packed kernels' staged decode (it has no
+    counterpart in the JAX package, whose blocks decode from the word span).
+
+    Returns ``(bursts, table)``: ``bursts[k] = (b0, b1)`` are FEE block k's
+    covering bursts, the 16 B units ``[w0 // 4, ceil(w1 / 4))`` of the row
+    around its word span ``[w0, w1)`` (:func:`block_spans`); ``table`` is
+    the (D, 4) int32 burst table, one row per feature: bit offset | word
+    index relative to word ``4 * b0`` of its block << 5, the field mask
+    ``(1 << width) - 1``, and its format's mul and ebias
+    (:func:`_widen_constants`)."""
+    bursts = [(w0 // BURST_WORDS, -(-w1 // BURST_WORDS))
+              for w0, w1 in block_spans(cfg, seg)]
+    pos, _ = dfl.feature_positions(cfg)
+    table = np.array([(ofs | (wi - BURST_WORDS * bursts[f // seg][0]) << 5,
+                       (1 << sg.width) - 1, *_widen_constants(sg))
+                      for f, (wi, ofs, sg) in enumerate(pos)], np.uint32)
+    return bursts, table.reshape(-1, 4).view(np.int32)
+
+
+def block_formats(cfg: dfl.DfloatConfig, seg: int) -> list[tuple[int, int, int]]:
+    """Per FEE block, ``(width, mul, ebias)`` when its ``seg`` fields share
+    one format and the first starts a 128-bit burst (its fields then lie at
+    positions fixed by the width, which the kernels decode with compile-time
+    shifts), else ``(0, 0, 0)`` (the kernels decode it from the burst
+    table)."""
+    pos, _ = dfl.feature_positions(cfg)
+    out = []
+    for k in range(cfg.dim // seg):
+        block = pos[k * seg:(k + 1) * seg]
+        sg = block[0][2]
+        static = (cfg.burst_bits == 128 and all(p[2] is sg for p in block)
+                  and (k * seg - sg.start) % (128 // sg.width) == 0)
+        out.append((sg.width, *_widen_constants(sg)) if static
+                   else (0, 0, 0))
+    return out
+
+
+def stage_bursts(bursts) -> int:
+    """The staging size of the packed kernels for these blocks: the least of
+    :data:`STAGE_BURSTS` that holds every block's bursts; raises beyond."""
+    most = max(b1 - b0 for b0, b1 in bursts)
+    for nb in STAGE_BURSTS:
+        if most <= nb:
+            return nb
+    raise ValueError(f"a FEE block spans {most} bursts of 16 B; the packed "
+                     f"kernels stage at most {STAGE_BURSTS[-1]}: use a smaller "
+                     "seg")
+
+
 @functools.lru_cache(maxsize=64)
-def _span_table(cfg: dfl.DfloatConfig, seg: int, device: torch.device):
-    spans = block_spans(cfg, seg)
-    return (torch.tensor(spans, dtype=torch.int32, device=device),
-            max(w1 - w0 for w0, w1 in spans))
+def _burst_tables(cfg: dfl.DfloatConfig, seg: int, device: torch.device):
+    """The packed kernels' (D, 4) burst table, their (S, 4) block
+    descriptors ``(b0, (b1 - b0) | width << 8, mul, ebias)`` and their
+    staging size, on ``device``."""
+    bursts, table = block_bursts(cfg, seg)
+    blocks = np.array([(b0, (b1 - b0) | w << 8, mul, ebias)
+                       for (b0, b1), (w, mul, ebias)
+                       in zip(bursts, block_formats(cfg, seg))], np.uint32)
+    return (torch.from_numpy(table).to(device),
+            torch.from_numpy(blocks.view(np.int32)).to(device),
+            stage_bursts(bursts))
 
 
 def _check_lanes(ids, q, threshold, alpha, beta, margin, lane_mask, dim, seg,
@@ -162,21 +243,22 @@ def fee_distance_packed(xp, ids, q, threshold, alpha, beta, margin, *,
                         dfloat_cfg: dfl.DfloatConfig, seg: int,
                         metric: str = "l2", lane_mask=None):
     """Fused Dfloat decode + early-exit scores of packed rows ``xp[ids]``
-    ((N, W) int32/uint32 words of ``dfloat_cfg``'s layout).  Bit-identical
-    to :func:`fee_distance` over the emulated rows.  CPU tensors take the
-    plain version."""
+    ((N, W) int32/uint32 words of ``dfloat_cfg``'s layout, rows at any pitch
+    >= W).  Bit-identical to :func:`fee_distance` over the emulated rows.
+    CPU tensors take the plain version."""
     if xp.device.type == "cpu":
         return ref.fee_distance_packed_gather_ref(
             xp, ids, q, threshold, alpha, beta, margin, dfloat_cfg=dfloat_cfg,
             seg=seg, metric=metric, lane_mask=lane_mask)
-    check_packed(xp, dfloat_cfg)
+    pitch = check_packed(xp, dfloat_cfg)
     dim = dfloat_cfg.dim
     n_q, lanes = _check_lanes(ids, q, threshold, alpha, beta, margin,
                               lane_mask, dim, seg, metric)
+    table, blocks, nb = _burst_tables(dfloat_cfg, seg, xp.device)
     dist, rej, segs = _outputs(n_q, lanes, xp.device)
     fn = _build.function(_LIB, "naszip_fee_distance_packed", _PACKED_ARGS)
-    code = fn(xp.data_ptr(), xp.shape[0], xp.shape[1], dim,
-              decode_table(dfloat_cfg, xp.device).data_ptr(), ids.data_ptr(),
+    code = fn(xp.data_ptr(), xp.shape[0], xp.shape[1], pitch, dim,
+              table.data_ptr(), blocks.data_ptr(), nb, ids.data_ptr(),
               _build.ptr(lane_mask), q.data_ptr(), threshold.data_ptr(),
               alpha.data_ptr(), beta.data_ptr(), margin.data_ptr(), n_q, lanes,
               seg, METRICS[metric], dist.data_ptr(), rej.data_ptr(),
@@ -217,29 +299,28 @@ def fee_distance_packed_skipdma(xp, ids, q, threshold, alpha, beta, margin, *,
                                 dfloat_cfg: dfl.DfloatConfig, seg: int,
                                 metric: str = "l2", lane_mask=None):
     """:func:`fee_distance_packed`'s contract through warp-gated ``cp.async``
-    copies of each live lane's block word span; bit-identical to
+    copies of each live lane's covering bursts; bit-identical to
     :func:`fee_distance_packed`.  CPU tensors take the plain version."""
     if xp.device.type == "cpu":
         return ref.fee_distance_packed_gather_ref(
             xp, ids, q, threshold, alpha, beta, margin, dfloat_cfg=dfloat_cfg,
             seg=seg, metric=metric, lane_mask=lane_mask)
-    check_packed(xp, dfloat_cfg)
+    pitch = check_packed(xp, dfloat_cfg)
     dim = dfloat_cfg.dim
     n_q, lanes = _check_lanes(ids, q, threshold, alpha, beta, margin,
                               lane_mask, dim, seg, metric)
-    spans, max_span = _span_table(dfloat_cfg, seg, xp.device)
-    s_even = dim // seg + (dim // seg) % 2
-    warps = skip_warps(32 * max_span * 4, fixed=dim * 16 + s_even * 8)
+    table, blocks, nb = _burst_tables(dfloat_cfg, seg, xp.device)
+    # two tiles of 32 lane slots of nb + 1 bursts per warp
+    warps = skip_warps(2 * 32 * (nb + 1) * 16, fixed=(dim + dim // seg) * 16)
     dist, rej, segs = _outputs(n_q, lanes, xp.device)
     fn = _build.function(_SKIP_LIB, "naszip_fee_skipdma_packed",
                          _SKIP_PACKED_ARGS)
-    code = fn(xp.data_ptr(), xp.shape[0], xp.shape[1], dim,
-              decode_table(dfloat_cfg, xp.device).data_ptr(), spans.data_ptr(),
-              max_span, ids.data_ptr(), _build.ptr(lane_mask), q.data_ptr(),
-              threshold.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
-              margin.data_ptr(), n_q, lanes, seg, METRICS[metric], warps,
-              dist.data_ptr(), rej.data_ptr(), segs.data_ptr(),
-              _build.stream_ptr(xp))
+    code = fn(xp.data_ptr(), xp.shape[0], xp.shape[1], pitch, dim,
+              table.data_ptr(), blocks.data_ptr(), nb, ids.data_ptr(),
+              _build.ptr(lane_mask), q.data_ptr(), threshold.data_ptr(),
+              alpha.data_ptr(), beta.data_ptr(), margin.data_ptr(), n_q, lanes,
+              seg, METRICS[metric], warps, dist.data_ptr(), rej.data_ptr(),
+              segs.data_ptr(), _build.stream_ptr(xp))
     _build.check(_SKIP_LIB, "fee_distance_packed_skipdma", code)
     fee_distance_packed_skipdma.launches += 1
     return dist, rej, segs
@@ -260,8 +341,8 @@ def fee_distance_tiered(xc, xr, ids, q, threshold, alpha, beta, margin, *,
             xc, xr, ids, q, threshold, alpha, beta, margin,
             coarse_cfg=coarse_cfg, resid_cfg=resid_cfg, seg=seg,
             metric=metric, lane_mask=lane_mask)
-    check_packed(xc, coarse_cfg)
-    check_packed(xr, resid_cfg)
+    pitch_c = check_packed(xc, coarse_cfg)
+    pitch_r = check_packed(xr, resid_cfg)
     if xr.device != xc.device or xr.shape[0] != xc.shape[0]:
         raise ValueError(f"tier rows disagree: coarse {tuple(xc.shape)} on "
                          f"{xc.device}, residual {tuple(xr.shape)} on {xr.device}")
@@ -273,8 +354,8 @@ def fee_distance_tiered(xc, xr, ids, q, threshold, alpha, beta, margin, *,
                               lane_mask, dim, seg, metric)
     dist, rej, segs = _outputs(n_q, lanes, xc.device)
     fn = _build.function(_TIER_LIB, "naszip_fee_tiered", _TIERED_ARGS)
-    code = fn(xc.data_ptr(), xr.data_ptr(), xc.shape[0], xc.shape[1],
-              xr.shape[1], dc, dim,
+    code = fn(xc.data_ptr(), xr.data_ptr(), xc.shape[0], pitch_c, pitch_r, dc,
+              dim,
               decode_table(coarse_cfg, xc.device).data_ptr(),
               decode_table(resid_cfg, xc.device).data_ptr(), ids.data_ptr(),
               _build.ptr(lane_mask), q.data_ptr(), threshold.data_ptr(),

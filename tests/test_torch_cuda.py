@@ -8,7 +8,9 @@ scores are bit-exact, and so are the skip-DMA kernels against the kernels
 whose contract they share and the tiered kernel at every split against the
 packed kernel over the parent rows.  ``SCALAR_SHAPES`` (seg % 4 != 0) run the
 f32 kernels' one-float-at-a-time loads and 4-byte copies, every other shape
-their float4 loads and 16-byte copies.
+their float4 loads and 16-byte copies.  The packed kernels read 16 B bursts
+where the rows are 16 B aligned and 4 B words where they are not: both run
+over row views at pitch W and W + 4, with the row base on and off 16 B.
 """
 import numpy as np
 import pytest
@@ -131,3 +133,77 @@ def test_cuda_wrappers_reject_badinputs(cuda):
     with pytest.raises(ValueError):
         fee_kernel.fee_distance(x, torch.zeros((1, 4), dtype=torch.int32, device=cuda),
                                 q[:, :16], thr, ones, ones, ones, seg=16)
+
+
+def _row_view(packed, pad, offset):
+    """``packed`` (N, W) as a row view at pitch W + ``pad`` words whose base
+    lies ``offset`` words into its buffer (offset 1: off 16 B alignment)."""
+    n, w = packed.shape
+    buf = torch.zeros(offset + n * (w + pad), dtype=packed.dtype, device=packed.device)
+    rows = buf.as_strided((n, w), (w + pad, 1), offset)
+    rows.copy_(packed)
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d,seg", SHAPES + SCALAR_SHAPES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_packed_kernels_every_pitch_and_load_path(cuda, c, d, seg, metric):
+    """Both packed kernels equal the f32 kernel over the decoded rows bit for
+    bit at pitch W and W + 4, through the 16 B and the 4 B paths, with the
+    queries on and off 16 B alignment; so does the tiered kernel with the
+    whole row as its coarse tier."""
+    rng, x, args, mask = _lanes(cuda, c, d, seg, metric)
+    kw = dict(seg=seg, metric=metric, lane_mask=mask)
+    cfg, _ = random_layout(rng, d, x)
+    packed = torch.from_numpy(dfl.pack_db(x, cfg).view(np.int32)).to(cuda)
+    xq = unpack_kernel.dfloat_unpack(packed, cfg)
+    want = fee_kernel.fee_distance(xq, *args, **kw)
+    full, none = dfl.split_config(cfg, d)
+    for pad in (0, 4):
+        for offset in (0, 1):
+            rows = _row_view(packed, pad, offset)
+            assert torch.equal(unpack_kernel.dfloat_unpack(rows, cfg), xq), (pad, offset)
+            runs = {"packed": fee_kernel.fee_distance_packed(rows, *args, dfloat_cfg=cfg, **kw),
+                    "packed_skipdma": fee_kernel.fee_distance_packed_skipdma(
+                        rows, *args, dfloat_cfg=cfg, **kw),
+                    "tiered": fee_kernel.fee_distance_tiered(
+                        rows, rows[:, :0], *args, coarse_cfg=full, resid_cfg=none, **kw)}
+            q_off = torch.zeros(args[1].numel() + 1, device=cuda)[1:].view_as(args[1])
+            q_off.copy_(args[1])
+            off = (args[0], q_off, *args[2:])
+            runs["packed q+4B"] = fee_kernel.fee_distance_packed(rows, *off, dfloat_cfg=cfg, **kw)
+            runs["packed_skipdma q+4B"] = fee_kernel.fee_distance_packed_skipdma(
+                rows, *off, dfloat_cfg=cfg, **kw)
+            for name, got in runs.items():
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (name, pad, offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q,lanes", [(1, 1), (1, 32), (1, 33), (1, 63), (3, 11), (3, 32),
+                                       (5, 13), (1, 200)])
+def test_cuda_packed_skipdma_partial_tiles(cuda, n_q, lanes):
+    """A warp of the packed skip-DMA kernel owns two 32-lane tiles: lane
+    counts that leave tile B partly or wholly empty give the packed kernel's
+    bits, which are the f32 kernel's over the decoded rows."""
+    c, d, seg = 100, 128, 16
+    q, x, thr, alpha, beta, margin = inputs(c, d, seg, "l2", n_q * lanes)
+    rng = np.random.default_rng(lanes)
+    ids = torch.from_numpy(rng.integers(0, c, (n_q, lanes)).astype(np.int32)).to(cuda)
+    qs = torch.from_numpy(np.stack([q * (1 + 0.1 * i) for i in range(n_q)])).to(cuda)
+    args = (ids, qs, torch.full((n_q,), float(thr), device=cuda),
+            *(torch.from_numpy(a).to(cuda) for a in (alpha, beta, margin)))
+    mask = torch.from_numpy(rng.random((n_q, lanes)) < 0.8).to(cuda)
+    kw = dict(seg=seg, metric="l2", lane_mask=mask)
+    cfg, _ = random_layout(rng, d, x)
+    packed = torch.from_numpy(dfl.pack_db(x, cfg).view(np.int32)).to(cuda)
+    xq = unpack_kernel.dfloat_unpack(packed, cfg)
+    got = fee_kernel.fee_distance_packed_skipdma(packed, *args, dfloat_cfg=cfg, **kw)
+    near = near_threshold(xq[ids.long()], *args[1:], seg=seg, metric="l2")
+    compare_fee(got, ref.fee_distance_packed_gather_ref(packed, *args, dfloat_cfg=cfg, **kw),
+                near)
+    for want in (fee_kernel.fee_distance_packed(packed, *args, dfloat_cfg=cfg, **kw),
+                 fee_kernel.fee_distance(xq, *args, **kw)):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
