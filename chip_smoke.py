@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases, each of which fails the run when its check fails:
 
 1. device and power limit; build every CUDA kernel from
-   ``src/repro_torch/kernels/csrc`` (``nvcc``, sm_90a); the packed FEE
-   kernels must have no stack frame (their staged words stay in registers);
+   ``src/repro_torch/kernels/csrc`` (``nvcc``, sm_90a); the packed and
+   tiered FEE kernels and the f32 skip-DMA kernel must have no stack frame
+   (their staged words stay in registers);
 2. each kernel against its plain PyTorch version on the card at edge shapes
    (``repro_torch.kernels.check``: the ``SHAPES`` of ``tests/test_kernels.py``
    and two with seg % 4 != 0, both metrics, random Dfloat layouts); the
@@ -33,9 +34,11 @@ Phases, each of which fails the run when its check fails:
 5. each kernel against its plain version at the main path's shapes, timed
    with CUDA events beside its bound (bytes over 3.35 TB/s, operations over
    67 TFLOP/s float32); the f32 kernel's float4 loads against its one-float
-   loads (``fee_distance_loads``), the packed kernel's 16 B burst loads
-   against its 4 B loads (``packed_loads``), and the two packed kernels and
-   the tiered kernel over rows at a 256 B and a 272 B pitch (``pitch_ms``);
+   loads (``fee_distance_loads``), the f32 skip-DMA kernel's 16 B copies
+   against its 4 B copies (``skipdma_loads``), the packed and the tiered
+   kernel's 16 B burst loads against their 4 B loads (``packed_loads``,
+   ``tiered_loads``), and the two packed kernels and the tiered kernel over
+   rows at a 256 B and a 272 B pitch (``pitch_ms``);
 6. ``torch.profiler`` over one f32 and one packed search batch: device-busy
    time against the batch's wall time, and the costliest kernels.
 
@@ -68,7 +71,8 @@ SLEEP_CYCLES = 100_000_000         # ~50 ms at the H100's clocks: time to queue 
 PORT_KERNELS = ("fee_f32_kernel", "fee_packed_kernel", "dfloat_unpack_kernel",
                 "fee_skipdma_f32_kernel", "fee_skipdma_packed_kernel", "fee_tiered_kernel")
 # kernels whose staged words must stay in registers (no local-memory frame)
-NO_FRAME_KERNELS = ("fee_packed_kernel", "fee_skipdma_packed_kernel")
+NO_FRAME_KERNELS = ("fee_packed_kernel", "fee_skipdma_packed_kernel", "fee_tiered_kernel",
+                    "fee_skipdma_f32_kernel")
 REPLACES = {
     "fee_distance": "src/repro/kernels/fee_distance.py:106",
     "fee_distance_skipdma": "src/repro/kernels/fee_distance.py:192",
@@ -356,6 +360,17 @@ def main_path_kernels(index, db, res64, dev, launches):
     err_k, _, _ = compare_fee(got_k, want, near, "fee_distance_skipdma (main path)")
     check(same_bits(got_k, got), "fee_distance_skipdma (main path): not bit-identical "
           "to fee_distance")
+    # the same launch through the 4 B copies: rows 4 bytes off 16-byte
+    # alignment turn the 16 B copies off
+    x_off = row_copy(x, offset=1)
+    check(same_bits(fee_kernel.fee_distance_skipdma(x_off, *args, **kw), got),
+          "fee_distance_skipdma 4 B copies: not bit-identical to fee_distance")
+    kloads = {"copy16_ms": [], "copy4_ms": []}
+    for key in ("copy16_ms", "copy4_ms", "copy4_ms", "copy16_ms"):   # in turns
+        rows = x if key == "copy16_ms" else x_off
+        kloads[key].append(time_ms(lambda: fee_kernel.fee_distance_skipdma(rows, *args, **kw)))
+    log(json.dumps({"skipdma_loads": kloads}))
+    del x_off
 
     got_p = fee_kernel.fee_distance_packed(xp, *args, **pkw)
     check(same_bits(got_p, got), "fee_distance_packed (main path): not bit-identical to "
@@ -399,6 +414,17 @@ def main_path_kernels(index, db, res64, dev, launches):
     log(f"fee_distance_tiered at tier_split={index.tier_split}: Wc={tiers[0].shape[1]} "
         f"Wr={tiers[1].shape[1]} words, {past:.4f} of the lanes read the residual tier, "
         f"{(c_words + r_words) * 4 / max(1, n_feat):.3f} B per scored feature")
+    # the same launch through the 4 B loads: both tiers' rows 4 bytes off
+    # 16-byte alignment turn their 16 B burst loads off
+    tiers_off = [row_copy(t, offset=1) for t in tiers]
+    check(same_bits(fee_kernel.fee_distance_tiered(*tiers_off, *args, **tkw), got_p),
+          "fee_distance_tiered 4 B loads: not bit-identical to fee_distance_packed")
+    tloads = {"burst16_ms": [], "word4_ms": []}
+    for key in ("burst16_ms", "word4_ms", "word4_ms", "burst16_ms"):   # in turns
+        src = tiers if key == "burst16_ms" else tiers_off
+        tloads[key].append(time_ms(lambda: fee_kernel.fee_distance_tiered(*src, *args, **tkw)))
+    log(json.dumps({"tiered_loads": tloads}))
+    del tiers_off
 
     lvl_ids = torch.from_numpy(index.graph.levels[1][0].astype(np.int64)).to(dev)
     words = xp[lvl_ids].contiguous()
@@ -439,7 +465,7 @@ def main_path_kernels(index, db, res64, dev, launches):
     log(json.dumps({"cold_l2_ms": cold}))
     # kernel 5 over kernel 3's own rows: the degenerate splits are the
     # parent bitstream as one tier and an empty other tier, so the same
-    # words go through each kernel's code (in turns)
+    # words go through each kernel's staging and decode (in turns)
     empty = xp[:, :0]
     full, none = dfl.split_config(cfg, d)
     layouts = {"packed": lambda: fee_kernel.fee_distance_packed(xp, *args, **pkw),
@@ -455,8 +481,8 @@ def main_path_kernels(index, db, res64, dev, launches):
         same_rows[name].append(time_ms(layouts[name]))
     log(json.dumps({"same_rows_ms": same_rows}))
     # the row pitch: the same words at 256 B (W) and at 272 B (W + 4) per row,
-    # through the two packed kernels and the tiered kernel (the one-field-
-    # per-load design) at split S, in turns
+    # through the two packed kernels and the tiered kernel at split S (all
+    # three stage 16 B bursts), in turns
     wide = row_copy(xp, pad=4)
     pitched = {
         "fee_distance_packed": lambda r: fee_kernel.fee_distance_packed(r, *args, **pkw),
@@ -673,9 +699,12 @@ def main(argv=None) -> int:
                 log(f"  {stem}: {line.strip()}")
     frames = {name: b for name, b in stack_frames(logs).items()
               if any(k in name for k in NO_FRAME_KERNELS)}
-    check(frames and not any(frames.values()), f"packed FEE kernels with a stack frame "
-          f"(local memory): {frames}")
-    log(f"packed FEE kernels: {len(frames)} instantiations, no stack frame")
+    missing = [k for k in NO_FRAME_KERNELS if not any(k in name for name in frames)]
+    check(not missing, f"no ptxas output for {missing}")
+    framed = {name: b for name, b in frames.items() if b}
+    check(not framed, f"FEE kernels with a stack frame (local memory): {framed}")
+    log(f"staged FEE kernels {', '.join(NO_FRAME_KERNELS)}: {len(frames)} instantiations, "
+        "no stack frame")
 
     n_edge = edge_shape_checks(dev)
     log(f"edge shapes: {n_edge} cases match their plain versions")

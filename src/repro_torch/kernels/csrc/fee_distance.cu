@@ -34,35 +34,6 @@ struct F32Row {
   }
 };
 
-// A lane's packed row.  load() stages the covering bursts of the block with
-// descriptor d = (b0, nb | W << 8, ...): 16 B loads when VEC (16 B aligned
-// row base, a pitch and W that are multiples of 4 words), otherwise the same
-// words 4 B at a time, clipped to the row's W words.  Each word is read once;
-// the staging past the block's bursts is zero.
-template <int NB, bool VEC>
-struct BurstRow {
-  const uint32_t* p;
-  int words;  // W: the row's words (the pitch may be larger)
-  __device__ __forceinline__ void load(int4 d, uint32_t (&w)[4 * NB + 1]) const {
-    if constexpr (VEC) {
-#pragma unroll
-      for (int c = 0; c < NB; ++c) {
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (c < (d.y & 0xFF)) v = __ldg(reinterpret_cast<const uint4*>(p) + d.x + c);
-        w[4 * c] = v.x;
-        w[4 * c + 1] = v.y;
-        w[4 * c + 2] = v.z;
-        w[4 * c + 3] = v.w;
-      }
-    } else {
-      const int w0 = 4 * d.x, n = min(4 * (d.y & 0xFF), words - w0);
-#pragma unroll
-      for (int i = 0; i < 4 * NB; ++i) w[i] = i < n ? __ldg(p + w0 + i) : 0u;
-    }
-    w[4 * NB] = 0u;
-  }
-};
-
 template <bool VEC>
 __global__ void fee_f32_kernel(const float* __restrict__ db, long long n_rows, int dim,
                                const int* __restrict__ ids, const uint8_t* __restrict__ alive,
@@ -103,7 +74,7 @@ __global__ void fee_packed_kernel(const uint32_t* __restrict__ xp, long long n_r
   const long long qi = g / lanes;
   int id;
   if (naszip::lane_live(ids, alive, g, n_rows, &id)) {
-    const BurstRow<NB, VEC> row{xp + id * pitch, words};
+    const naszip::BurstRow<NB, VEC> row{xp + id * pitch, words};
     const float* qr = q + qi * dim;
     naszip::fee_lane_parts(
         [&](int s) {

@@ -1,8 +1,10 @@
 // Device code shared by the NasZip kernels: the Dfloat field decoder, the
-// burst-staged block decode of the two packed FEE kernels, and the FEE
-// accumulate/exit step.  All five FEE kernels (f32 rows, packed rows, tiered
-// rows, and the two skip-DMA kernels) sum a segment in feature order through
-// fee_term() (seg_part() or seg_part_bursts()) and take fee_step(), so they
+// burst-staged block decode of the three packed FEE kernels (packed rows,
+// tier rows, packed skip-DMA), and the FEE accumulate/exit step.  All five
+// FEE kernels (f32 rows, packed rows, tiered rows, and the two skip-DMA
+// kernels) sum a segment in feature order through fee_term() or
+// fee_term_ip() (seg_part(), seg_part_bursts(), or the f32 skip-DMA
+// kernel's own loop over its landed floats) and take fee_step(), so they
 // add the same values in the same order with the same rounding: packed,
 // tiered and skip-DMA scores are bit-identical to f32 scores over the
 // emulated (db_q) rows.
@@ -242,6 +244,37 @@ __device__ __forceinline__ float seg_part_bursts(const uint32_t (&w)[4 * NB + 1]
   }
   return seg_part_table<NB, IP>(w, table, q, f0, seg);
 }
+
+// A lane's packed row, for the kernels that stage a block's covering bursts
+// in registers (fee_distance_packed, fee_distance_tiered).  load() stages the
+// bursts of the block with descriptor d = (b0, nb | W << 8, ...): 16 B loads
+// when VEC (burst_loads: 16 B aligned row base, a pitch and W that are
+// multiples of 4 words), otherwise the same words 4 B at a time, clipped to
+// the row's W words.  Each word is read once; the staging past the block's
+// bursts is zero.
+template <int NB, bool VEC>
+struct BurstRow {
+  const uint32_t* p;
+  int words;  // W: the row's words (the pitch may be larger)
+  __device__ __forceinline__ void load(int4 d, uint32_t (&w)[4 * NB + 1]) const {
+    if constexpr (VEC) {
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (c < (d.y & 0xFF)) v = __ldg(reinterpret_cast<const uint4*>(p) + d.x + c);
+        w[4 * c] = v.x;
+        w[4 * c + 1] = v.y;
+        w[4 * c + 2] = v.z;
+        w[4 * c + 3] = v.w;
+      }
+    } else {
+      const int w0 = 4 * d.x, n = min(4 * (d.y & 0xFF), words - w0);
+#pragma unroll
+      for (int i = 0; i < 4 * NB; ++i) w[i] = i < n ? __ldg(p + w0 + i) : 0u;
+    }
+    w[4 * NB] = 0u;
+  }
+};
 
 // Add segment s's partial score to the accumulator and decide the exit.  The
 // estimate is rounded at every operation, as the plain version's elementwise

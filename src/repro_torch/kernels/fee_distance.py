@@ -25,24 +25,28 @@ segment ``s`` of its row only while it is alive — exited and dead lanes stop
 moving bytes (for tiered rows: never touch the residual tier unless they pass
 the coarse one).  The skip-DMA kernels copy each live lane's segment into
 shared memory with ``cp.async`` while its warp's tile has a live lane, the
-counterpart of the TPU's gated ``make_async_copy``.
+counterpart of the TPU's gated ``make_async_copy``: one warp loop for both,
+two 32-lane tiles per warp so that one tile's copy overlaps the other's
+scoring, each lane's copy in a slot of odd stride so that the warp's shared
+loads are free of bank conflicts (:func:`skipdma_f32_slot`).
 
-The two packed kernels read a FEE block through its covering bursts
+The three packed kernels read a FEE block through its covering bursts
 (:func:`block_bursts`): the 16 B units of the row, 4-word aligned, that hold
-the block's fields and carry words.  ``fee_distance_packed`` loads them with
-16 B loads into registers, ``fee_distance_packed_skipdma`` copies them with
-16 B ``cp.async`` into a per-lane shared-memory slot, two 32-lane tiles per
-warp so that one tile's copy overlaps the other's decode.  Both decode from
-the staged words in registers: a block whose fields share one format and
-start a burst (:func:`block_formats`; every block of a 16-bit run at
-seg = 16) with shifts fixed at compile time for its width, any other block
-from a burst table whose word index is relative to the block's first burst.
-Where the rows are not 16 B aligned (row base, pitch, or W not a multiple
-of 4 words) they read the same words 4 B at a time.  Packed rows may be a
-row view of a wider matrix (``stride(1) == 1``, ``stride(0) >= W``): the
-kernels take ``stride(0)`` as the row pitch.  All five kernels share one
-accumulate/exit step, so packed, tiered and skip-DMA scores are
-bit-identical to f32 scores over the emulated rows.
+the block's fields and carry words.  ``fee_distance_packed`` and
+``fee_distance_tiered`` (per tier, from the tier's own layout:
+:func:`_tier_tables`) load them with 16 B loads into registers,
+``fee_distance_packed_skipdma`` copies them with 16 B ``cp.async`` into its
+slots.  All three decode from the staged words in registers: a block whose
+fields share one format and start a burst (:func:`block_formats`; every
+block of a 16-bit run at seg = 16) with shifts fixed at compile time for its
+width, any other block from a burst table whose word index is relative to
+the block's first burst.  Where the rows are not 16 B aligned (row base,
+pitch, or W not a multiple of 4 words) they read the same words 4 B at a
+time.  Packed and tier rows may be a row view of a wider matrix
+(``stride(1) == 1``, ``stride(0) >= W``): the kernels take ``stride(0)`` as
+the row pitch.  All five kernels share one accumulate/exit step, so packed,
+tiered and skip-DMA scores are bit-identical to f32 scores over the
+emulated rows.
 
 Bound on this card: bytes.  A live segment is a 64 B (f32) or ~32 B
 (packed) gather for ~3 flops per feature; the designs read each live
@@ -62,18 +66,18 @@ import torch
 
 from repro_torch.core import dfloat as dfl
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.dfloat_unpack import MAX_TABLE_DIM, check_packed, decode_table
+from repro_torch.kernels.dfloat_unpack import check_packed
 
 _LIB, _SKIP_LIB, _TIER_LIB = "fee_distance", "fee_skipdma", "fee_tiered"
 P, I, LL = _build.P, _build.I, _build.LL
 _F32_ARGS = (P, LL, I, P, P, P, P, P, P, P, LL, I, I, I, P, P, P, P)
 _PACKED_ARGS = (P, LL, I, LL, I, P, P, I, P, P, P, P, P, P, P, LL, I, I, I,
                 P, P, P, P)
-_SKIP_F32_ARGS = (P, LL, I, P, P, P, P, P, P, P, LL, I, I, I, I, P, P, P, P)
+_SKIP_F32_ARGS = (P, LL, I, P, P, P, P, P, P, P, LL, I, I, I, I, I, P, P, P, P)
 _SKIP_PACKED_ARGS = (P, LL, I, LL, I, P, P, I, P, P, P, P, P, P, P, LL, I, I, I,
                      I, P, P, P, P)
-_TIERED_ARGS = (P, P, LL, I, I, I, I, P, P, P, P, P, P, P, P, P, LL, I, I, I,
-                P, P, P, P)
+_TIERED_ARGS = (P, P, LL, I, LL, I, LL, I, I, P, P, I, P, P, P, P, P, P, P,
+                LL, I, I, I, P, P, P, P)
 METRICS = {"l2": 0, "ip": 1}
 SMEM_BLOCK_MAX = 232_448     # shared memory one block can use on Hopper
 SKIP_WARPS = 8               # warps per block of the skip-DMA kernels
@@ -163,18 +167,58 @@ def stage_bursts(bursts) -> int:
                      "seg")
 
 
-@functools.lru_cache(maxsize=64)
-def _burst_tables(cfg: dfl.DfloatConfig, seg: int, device: torch.device):
-    """The packed kernels' (D, 4) burst table, their (S, 4) block
-    descriptors ``(b0, (b1 - b0) | width << 8, mul, ebias)`` and their
-    staging size, on ``device``."""
+def block_descriptors(cfg: dfl.DfloatConfig, seg: int):
+    """``(table, blocks, bursts)``: the (D, 4) burst table and covering
+    bursts of :func:`block_bursts`, and the (S, 4) int32 block descriptors
+    ``(b0, (b1 - b0) | width << 8, mul, ebias)`` the packed kernels read
+    (width, mul and ebias from :func:`block_formats`).  A 0-feature layout
+    (an empty tier) gives (0, 4) arrays and no bursts."""
     bursts, table = block_bursts(cfg, seg)
     blocks = np.array([(b0, (b1 - b0) | w << 8, mul, ebias)
                        for (b0, b1), (w, mul, ebias)
                        in zip(bursts, block_formats(cfg, seg))], np.uint32)
+    return table, blocks.reshape(-1, 4).view(np.int32), bursts
+
+
+@functools.lru_cache(maxsize=64)
+def _burst_tables(cfg: dfl.DfloatConfig, seg: int, device: torch.device):
+    """The packed kernels' (D, 4) burst table, their (S, 4) block
+    descriptors and their staging size, on ``device``."""
+    table, blocks, bursts = block_descriptors(cfg, seg)
     return (torch.from_numpy(table).to(device),
-            torch.from_numpy(blocks.view(np.int32)).to(device),
-            stage_bursts(bursts))
+            torch.from_numpy(blocks).to(device), stage_bursts(bursts))
+
+
+@functools.lru_cache(maxsize=64)
+def _tier_tables(coarse_cfg: dfl.DfloatConfig, resid_cfg: dfl.DfloatConfig,
+                 seg: int, device: torch.device):
+    """The tiered kernel's tables on ``device``: the (D, 4) burst table and
+    (S, 4) block descriptors of the coarse tier's Sc = Dc / seg blocks, then
+    the residual tier's, each from :func:`block_descriptors` of the tier's
+    own layout (word indices and b0 relative to that tier's row), and the
+    staging size over both tiers' blocks.  Raises unless the split lies on
+    a segment boundary (``coarse_cfg.dim % seg == 0``), as the index's
+    splits at ``tier_split * seg`` do."""
+    if coarse_cfg.dim % seg:
+        raise ValueError(f"the tiered kernel splits on a segment boundary: "
+                         f"{coarse_cfg.dim} coarse features are not a "
+                         f"multiple of seg={seg}")
+    (ct, cb, c_bursts), (rt, rb, r_bursts) = (
+        block_descriptors(cfg, seg) for cfg in (coarse_cfg, resid_cfg))
+    return (torch.from_numpy(np.concatenate([ct, rt])).to(device),
+            torch.from_numpy(np.concatenate([cb, rb])).to(device),
+            stage_bursts(c_bursts + r_bursts))
+
+
+def skipdma_f32_slot(seg: int, vec: bool) -> int:
+    """Words of a lane's slot in the f32 skip-DMA kernel: on the 16 B path
+    (``vec``) the least odd count of 16 B chunks that holds ``seg`` floats
+    (seg + 4 floats at seg % 8 == 0), on the 4 B path the least odd count
+    of words.  An odd stride puts the 16 B (or 4 B) shared loads of eight
+    (or 32) neighbouring lanes on distinct banks."""
+    if vec:
+        return 4 * (seg // 4 | 1)
+    return seg | 1
 
 
 def _check_lanes(ids, q, threshold, alpha, beta, margin, lane_mask, dim, seg,
@@ -280,16 +324,21 @@ def fee_distance_skipdma(db, ids, q, threshold, alpha, beta, margin, *,
     if db.dtype != torch.float32 or db.dim() != 2 or not db.is_contiguous():
         raise ValueError(f"db must be a contiguous (N, D) float32 tensor, got "
                          f"{db.dtype} {tuple(db.shape)}")
+    dim = db.shape[1]
     n_q, lanes = _check_lanes(ids, q, threshold, alpha, beta, margin,
-                              lane_mask, db.shape[1], seg, metric)
-    warps = skip_warps(32 * seg * 4)
+                              lane_mask, dim, seg, metric)
+    # 16 B copies need seg % 4 == 0 and 16 B aligned rows; the slot's stride
+    # tells the kernel which path it takes
+    slot = skipdma_f32_slot(seg, seg % 4 == 0 and dim % 4 == 0
+                            and db.data_ptr() % 16 == 0)
+    warps = skip_warps(2 * 32 * slot * 4)        # two tiles of 32 slots a warp
     dist, rej, segs = _outputs(n_q, lanes, db.device)
     fn = _build.function(_SKIP_LIB, "naszip_fee_skipdma_f32", _SKIP_F32_ARGS)
-    code = fn(db.data_ptr(), db.shape[0], db.shape[1], ids.data_ptr(),
+    code = fn(db.data_ptr(), db.shape[0], dim, ids.data_ptr(),
               _build.ptr(lane_mask), q.data_ptr(), threshold.data_ptr(),
               alpha.data_ptr(), beta.data_ptr(), margin.data_ptr(), n_q, lanes,
-              seg, METRICS[metric], warps, dist.data_ptr(), rej.data_ptr(),
-              segs.data_ptr(), _build.stream_ptr(db))
+              seg, METRICS[metric], slot, warps, dist.data_ptr(),
+              rej.data_ptr(), segs.data_ptr(), _build.stream_ptr(db))
     _build.check(_SKIP_LIB, "fee_distance_skipdma", code)
     fee_distance_skipdma.launches += 1
     return dist, rej, segs
@@ -332,10 +381,12 @@ def fee_distance_tiered(xc, xr, ids, q, threshold, alpha, beta, margin, *,
                         metric: str = "l2", lane_mask=None):
     """Fused two-tier decode + early-exit scores of the tier rows ``xc[ids]``
     ((N, Wc) words of ``coarse_cfg``) and ``xr[ids]`` ((N, Wr) words of
-    ``resid_cfg``): a lane reads residual words only for the segments it
-    reaches past the coarse tier.  Bit-identical to
-    :func:`fee_distance_packed` over the parent layout's rows at any split,
-    0 and S included.  CPU tensors take the plain version."""
+    ``resid_cfg``), each at any pitch >= its W: a lane reads residual words
+    only for the segments it reaches past the coarse tier.  Bit-identical to
+    :func:`fee_distance_packed` over the parent layout's rows at any split
+    on a segment boundary, 0 and S included (the kernel raises on any other
+    split; the plain version takes it).  CPU tensors take the plain
+    version."""
     if xc.device.type == "cpu":
         return ref.fee_distance_tiered_gather_ref(
             xc, xr, ids, q, threshold, alpha, beta, margin,
@@ -347,20 +398,17 @@ def fee_distance_tiered(xc, xr, ids, q, threshold, alpha, beta, margin, *,
         raise ValueError(f"tier rows disagree: coarse {tuple(xc.shape)} on "
                          f"{xc.device}, residual {tuple(xr.shape)} on {xr.device}")
     dc, dim = coarse_cfg.dim, coarse_cfg.dim + resid_cfg.dim
-    if dim > MAX_TABLE_DIM:
-        raise ValueError(f"dim {dim} > {MAX_TABLE_DIM}: decode tables exceed "
-                         "the kernel's shared memory")
     n_q, lanes = _check_lanes(ids, q, threshold, alpha, beta, margin,
                               lane_mask, dim, seg, metric)
+    table, blocks, nb = _tier_tables(coarse_cfg, resid_cfg, seg, xc.device)
     dist, rej, segs = _outputs(n_q, lanes, xc.device)
     fn = _build.function(_TIER_LIB, "naszip_fee_tiered", _TIERED_ARGS)
-    code = fn(xc.data_ptr(), xr.data_ptr(), xc.shape[0], pitch_c, pitch_r, dc,
-              dim,
-              decode_table(coarse_cfg, xc.device).data_ptr(),
-              decode_table(resid_cfg, xc.device).data_ptr(), ids.data_ptr(),
-              _build.ptr(lane_mask), q.data_ptr(), threshold.data_ptr(),
-              alpha.data_ptr(), beta.data_ptr(), margin.data_ptr(), n_q, lanes,
-              seg, METRICS[metric], dist.data_ptr(), rej.data_ptr(),
+    code = fn(xc.data_ptr(), xr.data_ptr(), xc.shape[0], xc.shape[1], pitch_c,
+              xr.shape[1], pitch_r, dc, dim, table.data_ptr(),
+              blocks.data_ptr(), nb, ids.data_ptr(), _build.ptr(lane_mask),
+              q.data_ptr(), threshold.data_ptr(), alpha.data_ptr(),
+              beta.data_ptr(), margin.data_ptr(), n_q, lanes, seg,
+              METRICS[metric], dist.data_ptr(), rej.data_ptr(),
               segs.data_ptr(), _build.stream_ptr(xc))
     _build.check(_TIER_LIB, "fee_distance_tiered", code)
     fee_distance_tiered.launches += 1

@@ -10,7 +10,11 @@ packed kernel over the parent rows.  ``SCALAR_SHAPES`` (seg % 4 != 0) run the
 f32 kernels' one-float-at-a-time loads and 4-byte copies, every other shape
 their float4 loads and 16-byte copies.  The packed kernels read 16 B bursts
 where the rows are 16 B aligned and 4 B words where they are not: both run
-over row views at pitch W and W + 4, with the row base on and off 16 B.
+over row views at pitch W and W + 4, with the row base on and off 16 B, and
+the tiered kernel takes each tier's path per tier, at every split.  The two
+skip-DMA kernels share one warp loop over two 32-lane tiles: partial and
+empty tiles, dead lanes and tiles that all exit at segment 0 give the bits
+of the kernels whose contract they share.
 """
 import numpy as np
 import pytest
@@ -119,6 +123,14 @@ def test_cuda_tiered_kernel_every_split(cuda, c, d, seg, metric):
                     f"fee_distance_tiered split={split}")
         for a, b in zip(got, want_bits):
             assert torch.equal(a, b), split
+        # each tier alone, then both, as a row view at pitch W + 4 whose base
+        # lies 4 B off 16 B alignment: that tier's 4 B loads
+        xc, xr = tiers
+        for views in ((_row_view(xc, 4, 1), xr), (xc, _row_view(xr, 4, 1)),
+                      (_row_view(xc, 4, 1), _row_view(xr, 4, 1))):
+            got = fee_kernel.fee_distance_tiered(*views, *args, **tkw)
+            for a, b in zip(got, want_bits):
+                assert torch.equal(a, b), (split, [v.stride(0) for v in views])
 
 
 @pytest.mark.cuda
@@ -133,6 +145,16 @@ def test_cuda_wrappers_reject_badinputs(cuda):
     with pytest.raises(ValueError):
         fee_kernel.fee_distance(x, torch.zeros((1, 4), dtype=torch.int32, device=cuda),
                                 q[:, :16], thr, ones, ones, ones, seg=16)
+    # the tiered kernel splits on a segment boundary only
+    x_np = np.random.default_rng(0).standard_normal((8, 32)).astype(np.float32)
+    cfg = dfl.make_config(32, [(16, 5, 32)], x_np)
+    ccfg, rcfg = dfl.split_config(cfg, 8)
+    tiers = [torch.from_numpy(t.view(np.int32)).to(cuda) for t in dfl.pack_tiers(x_np, cfg, 8)]
+    with pytest.raises(ValueError, match="segment boundary"):
+        fee_kernel.fee_distance_tiered(*tiers, torch.zeros((1, 4), dtype=torch.int32,
+                                                           device=cuda),
+                                       q, thr, ones, ones, ones, coarse_cfg=ccfg,
+                                       resid_cfg=rcfg, seg=16)
 
 
 def _row_view(packed, pad, offset):
@@ -182,20 +204,32 @@ def test_cuda_packed_kernels_every_pitch_and_load_path(cuda, c, d, seg, metric):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_q,lanes", [(1, 1), (1, 32), (1, 33), (1, 63), (3, 11), (3, 32),
-                                       (5, 13), (1, 200)])
+                                       (5, 13), (1, 200), (2, 64), (3, 70)])
 def test_cuda_packed_skipdma_partial_tiles(cuda, n_q, lanes):
-    """A warp of the packed skip-DMA kernel owns two 32-lane tiles: lane
-    counts that leave tile B partly or wholly empty give the packed kernel's
-    bits, which are the f32 kernel's over the decoded rows."""
+    """A warp of either skip-DMA kernel owns two 32-lane tiles: lane counts
+    that leave tile B partly or wholly empty, dead lanes (20% masked out),
+    and a query whose lanes all exit at segment 0 (so do its first tiles)
+    give the bits of the kernel whose contract they share: the packed
+    kernel's, which are the f32 kernel's over the decoded rows, and the f32
+    kernel's, on the 16 B and the 4 B path."""
     c, d, seg = 100, 128, 16
     q, x, thr, alpha, beta, margin = inputs(c, d, seg, "l2", n_q * lanes)
     rng = np.random.default_rng(lanes)
     ids = torch.from_numpy(rng.integers(0, c, (n_q, lanes)).astype(np.int32)).to(cuda)
     qs = torch.from_numpy(np.stack([q * (1 + 0.1 * i) for i in range(n_q)])).to(cuda)
-    args = (ids, qs, torch.full((n_q,), float(thr), device=cuda),
-            *(torch.from_numpy(a).to(cuda) for a in (alpha, beta, margin)))
+    thrs = torch.full((n_q,), float(thr), device=cuda)
+    thrs[0] = -1.0                      # query 0: every lane exits at segment 0
+    args = (ids, qs, thrs, *(torch.from_numpy(a).to(cuda) for a in (alpha, beta, margin)))
     mask = torch.from_numpy(rng.random((n_q, lanes)) < 0.8).to(cuda)
     kw = dict(seg=seg, metric="l2", lane_mask=mask)
+    xt = torch.from_numpy(x).to(cuda)
+    f32 = fee_kernel.fee_distance(xt, *args, **kw)
+    assert bool((f32[2][0][mask[0]] == 1).all())
+    x_off = torch.zeros(xt.numel() + 1, device=cuda)[1:].view_as(xt)   # 4 B off 16 B
+    x_off.copy_(xt)
+    for rows in (xt, x_off):
+        for a, b in zip(fee_kernel.fee_distance_skipdma(rows, *args, **kw), f32):
+            assert torch.equal(a, b), rows.data_ptr() % 16
     cfg, _ = random_layout(rng, d, x)
     packed = torch.from_numpy(dfl.pack_db(x, cfg).view(np.int32)).to(cuda)
     xq = unpack_kernel.dfloat_unpack(packed, cfg)

@@ -116,23 +116,31 @@ def _widen(fld, mask, mul, ebias):
     return (bits - ((bits >> 31) << 32)).to(torch.int32).view(torch.float32)
 
 
-def staged_decode(xp: torch.Tensor, cfg: dfl.DfloatConfig, seg: int) -> torch.Tensor:
+def staged_decode(xp: torch.Tensor, cfg: dfl.DfloatConfig, seg: int,
+                  tables=None) -> torch.Tensor:
     """Plain emulation of the packed kernels' decode (``seg_part_bursts``):
     per block, stage its covering bursts' words (clipped to the row; zero
     past them and in the extra last slot), then either decode each field j
-    at its compile-time position (a block of :func:`block_formats`: bit
-    (j % per) * width of burst j // per) or walk the staged bursts in order
-    taking each burst's fields from the burst table, picking a field's word
-    pair by compare/select among the burst's four words and the next
-    burst's first; shift the pair down as a funnel shift does, and widen
-    the field with its format's constants.  Returns (N, D) f32."""
-    bursts, table = fee_kernel.block_bursts(cfg, seg)
-    formats = fee_kernel.block_formats(cfg, seg)
-    nb = fee_kernel.stage_bursts(bursts)
+    at its compile-time position (a block whose descriptor names a width:
+    bit (j % per) * width of burst j // per) or walk the staged bursts in
+    order taking each burst's fields from the burst table, picking a
+    field's word pair by compare/select among the burst's four words and the
+    next burst's first; shift the pair down as a funnel shift does, and
+    widen the field with its format's constants.  ``tables`` = (burst table,
+    block descriptors, staging size) as the kernels get them, by default
+    the packed kernels' own (``_burst_tables``).  Returns (N, D) f32."""
+    if tables is None:
+        tables = fee_kernel._burst_tables(cfg, seg, torch.device("cpu"))
+    table, blocks, nb = tables
+    table, blocks = np.asarray(table), np.asarray(blocks).view(np.uint32)
     words = dfl.words_i64(xp)
     n, w_total = words.shape
+    if cfg.dim == 0:
+        return torch.zeros((n, 0), dtype=torch.float32)
     cols = [None] * cfg.dim
-    for k, ((b0, b1), (width, mul, ebias)) in enumerate(zip(bursts, formats)):
+    for k, (b0, desc, mul, ebias) in enumerate(blocks.astype(np.int64)):
+        b1, width = b0 + (desc & 0xFF), desc >> 8
+        assert b1 - b0 <= nb
         staged = torch.zeros((n, 4 * nb + 1), dtype=torch.int64)
         end = min(4 * b1, w_total)
         staged[:, :end - 4 * b0] = words[:, 4 * b0:end]
@@ -144,7 +152,7 @@ def staged_decode(xp: torch.Tensor, cfg: dfl.DfloatConfig, seg: int) -> torch.Te
                 wi, ofs = 4 * (j // per) + bit // 32, bit % 32
                 pair = staged[:, wi] | (staged[:, wi + 1] << 32)
                 cols[f + j] = _widen((pair >> ofs) & ((1 << width) - 1), (1 << width) - 1,
-                                     mul, ebias)
+                                     int(mul), int(ebias))
             continue
         for c in range(nb):
             while f < f_end and int(table[f, 0]) >> 7 == c:
