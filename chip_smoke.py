@@ -15,7 +15,9 @@ Phases, each of which fails the run when its check fails:
    and two with seg % 4 != 0, both metrics, random Dfloat layouts); the
    skip-DMA kernels bit-identical to the kernels whose contract they share,
    and the tiered kernel at every tier split bit-identical to the packed
-   kernel over the parent rows;
+   kernel over the parent rows; ``dfloat_unpack`` bit-exact over row views
+   at pitch W + 4, with ids (repeats, and ids that name no row), at column
+   offsets 0-3 of a wider output, and as the tiered pair at every split;
 3. the main path: synthetic data of the SIFT1M shape, ``Index.build`` on the
    card, ``save`` / ``load``, then ``searcher("local")`` over all queries as
    one batch (a warm-up call and three timed calls) with ``storage="f32"``,
@@ -37,10 +39,20 @@ Phases, each of which fails the run when its check fails:
    loads (``fee_distance_loads``), the f32 skip-DMA kernel's 16 B copies
    against its 4 B copies (``skipdma_loads``), the packed and the tiered
    kernel's 16 B burst loads against their 4 B loads (``packed_loads``,
-   ``tiered_loads``), and the two packed kernels and the tiered kernel over
-   rows at a 256 B and a 272 B pitch (``pitch_ms``);
+   ``tiered_loads``), the two packed kernels and the tiered kernel over
+   rows at a 256 B and a 272 B pitch (``pitch_ms``), and ``dfloat_unpack``
+   gathering the upper level's rows itself against torch's gather followed
+   by the kernel (``unpack_gather_ms``);
 6. ``torch.profiler`` over one f32 and one packed search batch: device-busy
-   time against the batch's wall time, and the costliest kernels.
+   time against the batch's wall time, and the costliest kernels;
+7. the ndpsim backend (``searcher("ndpsim")``) over the first 256 queries
+   for ``storage="packed"`` and ``"tiered"``: its traced search must launch
+   that storage's FEE kernel and ``dfloat_unpack`` and no other FEE kernel,
+   reach recall@10 0.80, and give the plain path's trace (``nbrs``,
+   ``node``) on >= 99% of the queries; one ``ndpsim`` line per storage with
+   the traced search's wall time and launches, the host replay's seconds
+   and the simulator's projection of the paper's DIMM-NDP hardware (not a
+   time of this card).
 
 The second-to-last line is the ``kernels`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  ``--n`` / ``--queries`` cut the data for a
@@ -165,11 +177,35 @@ def row_copy(xp, pad=0, offset=0):
     return rows
 
 
+def unpack_routes(packed, cfg, rng, what):
+    """``dfloat_unpack`` bit-exact with its plain version over ``packed``
+    (N, W) rows at pitch W and W + 4, whole and gathered by ids (repeats,
+    and two that name no row), into a new matrix and at columns 0-3 of a
+    wider one (runs off 16 B alignment)."""
+    from repro_torch.kernels import dfloat_unpack as unpack_kernel
+    from repro_torch.kernels import ref
+
+    n, d = packed.shape[0], cfg.dim
+    ids = torch.from_numpy(rng.integers(0, n, 2 * n + 3)).to(packed.device)
+    ids[0], ids[-1] = -1, n
+    want = ref.dfloat_unpack_ref(packed, cfg, ids).view(torch.int32)
+    for pad in (0, 4):
+        rows = row_copy(packed, pad=pad)
+        for col in range(4):
+            out = torch.full((len(ids), d + 3), -7.0, device=packed.device)
+            unpack_kernel.dfloat_unpack(rows, cfg, ids=ids, out=out, col=col)
+            check(torch.equal(out[:, col:col + d].view(torch.int32), want)
+                  and bool((out[:, :col] == -7).all() and (out[:, col + d:] == -7).all()),
+                  f"{what}: pitch {rows.stride(0)}, ids, column {col}: not bit-exact")
+        check(torch.equal(unpack_kernel.dfloat_unpack(rows, cfg, ids=ids).view(torch.int32),
+                          want), f"{what}: pitch {rows.stride(0)}, ids: not bit-exact")
+
+
 def edge_shape_checks(dev):
     from repro_torch.core import dfloat as dfl
     from repro_torch.kernels import dfloat_unpack as unpack_kernel
     from repro_torch.kernels import fee_distance as fee_kernel
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.check import (SCALAR_SHAPES, SHAPES, compare_fee,
                                            near_threshold, random_layout)
 
@@ -202,6 +238,10 @@ def edge_shape_checks(dev):
             check(torch.equal(xq.view(torch.int32),
                               ref.dfloat_unpack_ref(packed, cfg).view(torch.int32)),
                   f"dfloat_unpack {c}x{d} {runs}: not bit-exact")
+            # the decode's routes draw from their own generator, so the
+            # earlier checks' inputs stay as they were
+            urng = np.random.default_rng([c, d, seg])
+            unpack_routes(packed, cfg, urng, f"dfloat_unpack {c}x{d} {runs}")
             pk = fee_kernel.fee_distance_packed(packed, *args, dfloat_cfg=cfg, **kw)
             near_q = near_threshold(xq[ids.long()], q, thr, alpha, beta, margin,
                                     seg=seg, metric=metric)
@@ -224,6 +264,11 @@ def edge_shape_checks(dev):
                             near_q, f"fee_distance_tiered {case} split={split}")
                 check(same_bits(tg, pk), f"fee_distance_tiered {case} split={split}: not "
                       "bit-identical to fee_distance_packed")
+                tier_ids = torch.from_numpy(urng.integers(0, c, 2 * c)).to(dev)
+                check(torch.equal(ops.dfloat_unpack_tiered_rows(*tiers, ccfg, rcfg,
+                                                                ids=tier_ids), xq[tier_ids])
+                      and torch.equal(ops.dfloat_unpack_tiered_rows(*tiers, ccfg, rcfg), xq),
+                      f"dfloat_unpack tiered pair {c}x{d} split={split}: not bit-exact")
             log(f"edge {case}: ok (exit flips {diff}, near-threshold lanes {n_near}), "
                 f"layout {runs}, tiered at {d // seg + 1} splits")
             n_cases += 1
@@ -305,7 +350,7 @@ def main_path_kernels(index, db, res64, dev, launches):
     from repro_torch.core import dfloat as dfl
     from repro_torch.kernels import dfloat_unpack as unpack_kernel
     from repro_torch.kernels import fee_distance as fee_kernel
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.check import compare_fee, near_threshold
 
     cfg, seg, metric = index.dfloat_cfg, index.seg, index.metric
@@ -434,7 +479,24 @@ def main_path_kernels(index, db, res64, dev, launches):
     check(torch.equal(dec, x[lvl_ids]), "dfloat_unpack (main path): decode differs "
           "from the emulated f32 rows")
     c = words.shape[0]
-    log(f"dfloat_unpack at C={c} W={w_words} D={d}: bit-exact")
+    # the same rows gathered inside the kernel, from the whole matrix at a
+    # 64- and a 68-word pitch, and the tiered pair written into one matrix
+    wide = row_copy(xp, pad=4)
+    for rows in (xp, wide):
+        check(torch.equal(unpack_kernel.dfloat_unpack(rows, cfg, ids=lvl_ids), dec),
+              f"dfloat_unpack with ids at pitch {rows.stride(0)} (main path): not bit-exact")
+    check(torch.equal(ops.dfloat_unpack_tiered_rows(*tiers, ccfg, rcfg, ids=lvl_ids), dec),
+          "dfloat_unpack tiered pair with ids (main path): not bit-exact")
+    del wide
+    log(f"dfloat_unpack at C={c} W={w_words} D={d}: bit-exact, pre-gathered, with ids at "
+        "pitch 64 and 68, and as the tiered pair")
+    gather = {"fused_ms": [], "torch_gather_ms": []}
+    fused = lambda: unpack_kernel.dfloat_unpack(xp, cfg, ids=lvl_ids)
+    unfused = lambda: unpack_kernel.dfloat_unpack(xp[lvl_ids], cfg)
+    for key in ("fused_ms", "torch_gather_ms", "torch_gather_ms", "fused_ms"):   # in turns
+        gather[key].append(time_ms(fused if key == "fused_ms" else unfused))
+    g_ms, g_by = bound(c * 8 + c * w_words * 4 + c * d * 4 + w_words * 4, 8 * c * d)
+    log(json.dumps({"unpack_gather_ms": {**gather, "bound_ms": g_ms, "bound_by": g_by}}))
 
     calls = {   # name: (kernel, plain version, max |dist error|, bytes, operations)
         "fee_distance": (lambda: fee_kernel.fee_distance(x, *args, **kw),
@@ -455,7 +517,7 @@ def main_path_kernels(index, db, res64, dev, launches):
                                 err_t, tiered_bytes, packed_ops),
         "dfloat_unpack": (lambda: unpack_kernel.dfloat_unpack(words, cfg),
                           lambda: ref.dfloat_unpack_ref(words, cfg), 0.0,
-                          c * w_words * 4 + c * d * 4 + d * 16, 8 * c * d),
+                          c * w_words * 4 + c * d * 4 + w_words * 4, 8 * c * d),
     }
     rows = [kernel_row(name, launches, *calls[name]) for name in SOURCES]
     # the same calls with the L2 flushed before each: the timed lanes' rows
@@ -657,6 +719,92 @@ def profile_search(index, db, dev, p50_ms, storage="f32"):
         "top": [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in top]}}))
 
 
+NDPSIM_QUERIES = 256           # the slice of the plain-path phase
+NDPSIM_CUT_QUERIES = 64        # when one replay takes longer than NDPSIM_REPLAY_S
+NDPSIM_REPLAY_S = 60.0
+NDPSIM_FEE = {"packed": "fee_distance_packed", "tiered": "fee_distance_tiered"}
+
+
+def ndpsim_phase(index, db, dev, kernels, n_q=NDPSIM_QUERIES):
+    """``searcher("ndpsim")`` for packed and tiered storage over the first
+    ``n_q`` queries: the launches of its traced search (counted from 0 just
+    before the call), recall, the plain path's trace, the traced search's
+    warm wall time, and one more host replay of the same trace, timed and
+    held equal to the searcher's projection.  Returns the reports, or None
+    when a replay took longer than NDPSIM_REPLAY_S."""
+    from repro_torch.core import graph as graph_mod
+    from repro_torch.data.synthetic import recall_at_k
+    from repro_torch.index import SearchParams
+    from repro_torch.ndpsim import SimFlags, simulate_ndp
+    from repro_torch.ndpsim.timing import NASZIP_2CH
+
+    queries, gt = db.queries[:n_q], db.gt[:n_q]
+    owner = graph_mod.map_owners(index.n, NASZIP_2CH.n_subchannels, "shuffle", seed=0)
+    reports = []
+    for storage, fee_name in NDPSIM_FEE.items():
+        params = SearchParams(ef=64, k=10, storage=storage)
+        run = index.searcher("ndpsim", params, device=dev)
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = run(queries)
+        call_s = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        log(json.dumps({"launches": {"search": f"ndpsim {storage}", **counts}}))
+        check(counts[fee_name] > 0 and counts["dfloat_unpack"] > 0,
+              f"the ndpsim {storage} search did not launch {fee_name} and dfloat_unpack")
+        others = {k: n for k, n in counts.items() if n and k not in (fee_name, "dfloat_unpack")}
+        check(not others, f"the ndpsim {storage} search launched {others}")
+        recall = recall_at_k(res.ids, gt, 10)
+        check(recall >= 0.80, f"ndpsim {storage}: recall@10 {recall:.4f} < 0.80")
+        traced = dataclasses.replace(params, trace=True)
+        plain = index.searcher("local", dataclasses.replace(traced, fee_backend="jnp"),
+                               device=dev)(queries)
+        same = np.ones(n_q, bool)
+        for key in ("nbrs", "node"):
+            same &= (plain.trace[key] == res.trace[key]).reshape(n_q, -1).all(1)
+        check(same.mean() >= 0.99, f"ndpsim {storage}: kernel and plain traces agree on "
+              f"{same.mean():.4f} of the queries (< 0.99)")
+        local = index.searcher("local", traced, device=dev)    # the one ndpsim drives
+        t0 = time.perf_counter()
+        again = local(queries)
+        search_s = time.perf_counter() - t0
+        check(np.array_equal(again.ids, res.ids), f"ndpsim {storage}: traced search not "
+              "repeatable")
+        tiers = index.tier_cfgs() if storage == "tiered" else None
+        t0 = time.perf_counter()
+        sim = simulate_ndp(res, owner, index.graph.base_adjacency, NASZIP_2CH, SimFlags(),
+                           index.dfloat_cfg, index.seg, tier_cfgs=tiers)
+        replay_s = time.perf_counter() - t0
+        check(sim.qps == res.sim.qps and sim.dram_bytes_per_query
+              == res.sim.dram_bytes_per_query, f"ndpsim {storage}: replay not repeatable")
+        if replay_s > NDPSIM_REPLAY_S and n_q > NDPSIM_CUT_QUERIES:
+            log(json.dumps({"reduced": {"ndpsim_queries": NDPSIM_CUT_QUERIES, "from": n_q,
+                                        "why": f"one replay took {replay_s:.1f} s "
+                                               f"> {NDPSIM_REPLAY_S} s"}}))
+            return None
+        share = res.sim.breakdown()
+        rep = dict(
+            storage=storage, queries=n_q, hops_traced=int(res.trace["node"].shape[1]),
+            search_s=search_s, call_s=call_s, replay_s=replay_s,
+            fee_launches=counts[fee_name], unpack_launches=counts["dfloat_unpack"],
+            recall_at_10=recall, trace_match=float(same.mean()),
+            projection="ndpsim projection of the paper's DIMM-NDP hardware "
+                       f"({NASZIP_2CH.name}), not a time of this card",
+            qps=res.sim.qps, avg_latency_us=res.sim.avg_latency_us,
+            neighbor_share=share["neighbor"], distance_share=share["distance"],
+            partial_share=share["partial"], lnc_t_hit=res.sim.lnc_t_hit,
+            lnc_d_hit=res.sim.lnc_d_hit, prefetch_hit=res.sim.prefetch_hit,
+            dram_bytes_per_query=res.sim.dram_bytes_per_query)
+        if storage == "tiered":
+            rep.update(survivor_fetch_fraction=res.sim.survivor_fetch_fraction,
+                       residual_fetch_fraction=res.residual_fetch_fraction,
+                       far_bytes_per_query=res.sim.far_bytes_per_query)
+        log(json.dumps({"ndpsim": rep}))
+        reports.append(rep)
+    return reports
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="base vectors")
@@ -715,6 +863,11 @@ def main(argv=None) -> int:
     rows = main_path_kernels(index, db, res64, dev, launches)
     for storage in ("f32", "packed"):
         profile_search(index, db, dev, rep[storage]["p50_batch_ms"], storage)
+    t0 = time.perf_counter()
+    if ndpsim_phase(index, db, dev, kernels) is None:
+        check(ndpsim_phase(index, db, dev, kernels, NDPSIM_CUT_QUERIES) is not None,
+              "ndpsim: a replay of 64 queries took longer than the limit too")
+    log(f"ndpsim phase {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

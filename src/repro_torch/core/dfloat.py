@@ -96,6 +96,13 @@ class DfloatConfig:
         layout)."""
         return 4 * packed_words(self)
 
+    def row_burst_groups(self) -> int:
+        """64B sub-channel burst groups to stream one full row (the
+        ``devices_per_subchannel`` devices move in lockstep, rule 4) — the
+        unit both the read and the write traffic accounting use."""
+        dev = max(1, self.devices_per_subchannel)
+        return -(-self.bursts_per_vector() // dev)
+
 
 def fp32_config(d: int) -> DfloatConfig:
     return DfloatConfig((DfloatSegment(0, d, 8, 23, 127),))
@@ -375,7 +382,7 @@ def decode_burst_quads(quad: torch.Tensor, s: DfloatSegment,
             v = v | (quad[:, :, wi + 1] << (32 - ofs))
         fld = v & ((1 << s.width) - 1)
         cols.append(decode_field_t(fld, s.n_exp, s.n_man, s.bias))
-    return torch.stack(cols, dim=-1).reshape(quad.shape[0], -1)
+    return torch.stack(cols, dim=-1).reshape(quad.shape[0], quad.shape[1] * per)
 
 
 def unpack_rows(packed: torch.Tensor, cfg: DfloatConfig) -> torch.Tensor:

@@ -10,6 +10,10 @@ subsampling) stay numpy with the same seed and call order, so on the same
 vectors the levels agree with the JAX package's up to distance ties.
 
 Matrix products are taken in full float32: the port never enables TF32.
+
+The data-aware neighbour-list mapping (``map_owners``, ``build_dam``) is the
+JAX package's numpy, copied: the ndpsim backend maps vectors to DIMM
+sub-channels with it.
 """
 from __future__ import annotations
 
@@ -143,3 +147,76 @@ def build_graph(vectors: np.ndarray, m: int = 16, metric: str = "l2",
         lvl += 1
     entry = int(levels[-1][0][0])
     return GraphIndex(levels=levels, entry=entry, m=m)
+
+
+# ---------------------------------------------------------------------------
+# DaM — data-aware neighbor-list mapping (paper §V-C2, Fig. 12)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DaMPartition:
+    """Per-sub-channel partitioned index.
+
+    owner[v]            sub-channel owning vector v
+    local_ids[c]        global ids owned by channel c (its vector shard order)
+    local_of[v]         position of v within its owner's shard
+    part_adj[c]         (N, Mc) int32: for EVERY node v, the members of v's
+                        neighbor list owned by channel c, as LOCAL slots into
+                        channel c's vector shard; -1 padded.  This is the
+                        NLT+partitioned-list structure of Fig. 12 in dense,
+                        fixed-width (shard_map-able) form.
+    """
+    n_channels: int
+    owner: np.ndarray
+    local_ids: list
+    local_of: np.ndarray
+    part_adj: list
+
+    def max_part_width(self) -> int:
+        return max(a.shape[1] for a in self.part_adj)
+
+
+def map_owners(n: int, n_channels: int, policy: str = "shuffle", seed: int = 0,
+               assign_hint: np.ndarray | None = None) -> np.ndarray:
+    """Vector->sub-channel ownership.
+
+    shuffle    round-robin over a random permutation (paper §VI-C7: datasets
+               are shuffled for balance)
+    contiguous block partition (the unshuffled 'Wiki' case — preserves
+               insertion locality, worse balance)
+    """
+    if policy == "shuffle":
+        rng = np.random.default_rng(seed)
+        perm = rng.permutation(n)
+        owner = np.empty(n, np.int32)
+        owner[perm] = np.arange(n) % n_channels
+        return owner
+    if policy == "contiguous":
+        return (np.arange(n) * n_channels // n).astype(np.int32)
+    raise ValueError(policy)
+
+
+def build_dam(adj: np.ndarray, owner: np.ndarray, n_channels: int,
+              pad_width: int | None = None) -> DaMPartition:
+    n, m = adj.shape
+    local_ids = [np.where(owner == c)[0].astype(np.int32) for c in range(n_channels)]
+    local_of = np.empty(n, np.int64)
+    for c, ids in enumerate(local_ids):
+        local_of[ids] = np.arange(len(ids))
+    nb_owner = owner[adj]                                    # (N, M)
+    width = pad_width or int(max(1, (nb_owner == np.arange(n_channels)[:, None, None]).sum(2).max()))
+    part_adj = []
+    for c in range(n_channels):
+        mask = nb_owner == c
+        pa = np.full((n, width), -1, np.int32)
+        rows, cols = np.nonzero(mask)
+        # stable position within row
+        pos = np.zeros(len(rows), np.int64)
+        if len(rows):
+            change = np.r_[True, rows[1:] != rows[:-1]]
+            idx_start = np.flatnonzero(change)
+            pos = np.arange(len(rows)) - np.repeat(np.arange(len(rows))[idx_start], np.diff(np.r_[idx_start, len(rows)]))
+        pa[rows, pos] = local_of[adj[rows, cols]]
+        part_adj.append(pa)
+    return DaMPartition(n_channels, owner.astype(np.int32), local_ids, local_of, part_adj)

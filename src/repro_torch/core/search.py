@@ -448,9 +448,10 @@ def search_graph(vectors, graph, queries, cfg: SearchConfig,
 
 
 def decode_rows(vectors, ids, dfloat_cfg, *, backend: str = "auto"):
-    """f32 rows ``ids`` of a packed DB (``vectors`` the word view,
-    ``dfloat_cfg`` its layout) or of a tiered one (both as pairs)."""
+    """f32 rows ``ids`` ((C,) int64) of a packed DB (``vectors`` the word
+    view, ``dfloat_cfg`` its layout) or of a tiered one (both as pairs); the
+    decode gathers the rows itself."""
     if isinstance(vectors, tuple):
-        return kops.dfloat_unpack_tiered_rows(vectors[0][ids], vectors[1][ids],
-                                              *dfloat_cfg, backend=backend)
-    return kops.dfloat_unpack_rows(vectors[ids], dfloat_cfg, backend=backend)
+        return kops.dfloat_unpack_tiered_rows(*vectors, *dfloat_cfg, ids=ids,
+                                              backend=backend)
+    return kops.dfloat_unpack_rows(vectors, dfloat_cfg, ids=ids, backend=backend)

@@ -1,26 +1,36 @@
 """Execution backends behind ``Index.searcher(backend=...)``.
 
 ``local`` runs the batched beam search of ``core.search`` on one device.
+``ndpsim`` runs the same search with tracing on, on the same device, and
+replays its per-hop trace on the host through the DIMM-NDP performance model
+(``repro_torch.ndpsim``), whose projection rides on ``SearchResult.sim``.
 Queries are raw (un-rotated) vectors; the searcher applies the index's sPCA
-transform and the hierarchy descent itself.  The ``sharded`` and ``ndpsim``
-backends of the JAX package are not ported yet (ROADMAP queue A, items 9
-and 6) and raise.
+transform and the hierarchy descent itself.  The ``sharded`` backend of the
+JAX package is not ported yet (ROADMAP queue A, item 9) and raises.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
+from repro_torch.core import dfloat as dfl
+from repro_torch.core import graph as graph_mod
 from repro_torch.core import search as search_mod
 from repro_torch.index.types import SearchParams, SearchResult
+from repro_torch.ndpsim import SimFlags, account_writes, simulate_ndp
+from repro_torch.ndpsim.timing import NASZIP_2CH
 
 BACKENDS = ("local", "sharded", "ndpsim")
-_LATER = {"sharded": "queue A, item 9", "ndpsim": "queue A, item 6"}
+_LATER = {"sharded": "queue A, item 9"}
 
 
 def make(index, backend: str, params: SearchParams, *, device, **opts):
     if backend == "local":
         return local_searcher(index, params, device=device, **opts)
+    if backend == "ndpsim":
+        return ndpsim_searcher(index, params, device=device, **opts)
     if backend in _LATER:
         raise NotImplementedError(f"the {backend!r} backend is not ported yet: "
                                   f"see ROADMAP.md {_LATER[backend]}")
@@ -73,6 +83,40 @@ def local_searcher(index, params: SearchParams, *, device, fee=None):
         entries = search_mod.descend_entry(rows, index.graph, qr, index.metric)
         res = SearchResult.from_raw(searcher(qr, entries))
         res.generation = index.generation
+        return res
+
+    return run
+
+
+def ndpsim_searcher(index, params: SearchParams, *, device, hw=None, flags=None,
+                    owner_policy: str = "shuffle", seed: int = 0, fee=None):
+    """Trace-driven DIMM-NDP projection: the local search with tracing forced
+    on (on ``device``), replayed on the host through
+    ``ndpsim.simulate_ndp``; the SimResult rides on ``SearchResult.sim``.
+    ``hw`` (default ``NASZIP_2CH``), ``flags``, ``owner_policy`` and
+    ``seed`` (the vector->sub-channel map) are the JAX package's options."""
+    hw = hw or NASZIP_2CH
+    flags = flags or SimFlags()
+    traced = dataclasses.replace(params, trace=True)
+    # no custom fee -> the index's cached traced local searcher
+    local = (index.searcher("local", traced, device=device) if fee is None
+             else local_searcher(index, traced, device=device, fee=fee))
+    owner = graph_mod.map_owners(index.n, hw.n_subchannels, owner_policy, seed=seed)
+    dfloat_cfg = (index.dfloat_cfg if params.use_dfloat
+                  else dfl.fp32_config(index.dim))
+    tier_cfgs = index.tier_cfgs() if params.storage == "tiered" else None
+
+    def run(queries) -> SearchResult:
+        res = local(queries)
+        res.sim = simulate_ndp(res, owner, index.graph.base_adjacency, hw,
+                               flags, dfloat_cfg, index.seg,
+                               tier_cfgs=tier_cfgs)
+        mut = (index.timings or {}).get("mutation")
+        if mut:
+            # streaming snapshot: append/repair traffic rides along as
+            # write-burst accounting next to the read-side projection
+            res.sim.writes = account_writes(
+                mut, index.dfloat_cfg, hw, index.graph.base_adjacency.shape[1])
         return res
 
     return run

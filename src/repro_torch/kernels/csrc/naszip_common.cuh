@@ -1,4 +1,5 @@
-// Device code shared by the NasZip kernels: the Dfloat field decoder, the
+// Device code shared by the NasZip kernels: the Dfloat field widening and
+// compile-time field positions (also used by dfloat_unpack.cu), the
 // burst-staged block decode of the three packed FEE kernels (packed rows,
 // tier rows, packed skip-DMA), and the FEE accumulate/exit step.  All five
 // FEE kernels (f32 rows, packed rows, tiered rows, and the two skip-DMA
@@ -14,41 +15,6 @@
 #include <cuda_runtime.h>
 
 namespace naszip {
-
-// One feature of a packed Dfloat row, built on the host from
-// dfloat.feature_positions (kernels/dfloat_unpack.py::decode_table):
-//   x = word index, y = bit offset | width << 8,
-//   z = n_exp | n_man << 8, w = exponent bias.
-// decode_bits widens a field already shifted down to bit 0 (the bits above it
-// are masked off here).
-__device__ __forceinline__ float decode_bits(uint32_t v, int4 t) {
-  const int width = t.y >> 8;
-  const int n_exp = t.z & 0xFF, n_man = t.z >> 8;
-  const uint32_t fld = width == 32 ? v : (v & ((1u << width) - 1u));
-  if (fld == 0u) return 0.0f;  // a zero field stays zero
-  const uint32_t sign = (fld >> (width - 1)) & 1u;
-  const uint32_t e = (fld >> n_man) & ((1u << n_exp) - 1u);
-  const uint32_t man = fld & ((1u << n_man) - 1u);
-  // 127 - bias wraps modulo 2^32 when bias > 127, as the reference decoder's
-  // uint32 arithmetic does; e + ebias is the f32 exponent for every valid field
-  const uint32_t ebias = static_cast<uint32_t>(127 - t.w);
-  return __uint_as_float((sign << 31) | ((e + ebias) << 23) | (man << (23 - n_man)));
-}
-
-// decode_field reads the field through word(i), word i of the row; the second
-// word is read only for a field that spans two words.
-template <class Word>
-__device__ __forceinline__ float decode_field(Word word, int4 t) {
-  const int ofs = t.y & 0xFF, width = t.y >> 8;
-  uint32_t v = word(t.x) >> ofs;
-  if (ofs + width > 32) v |= word(t.x + 1) << (32 - ofs);  // ofs > 0 here
-  return decode_bits(v, t);
-}
-
-// The same decode from a row in device memory.
-__device__ __forceinline__ float decode_feature(const uint32_t* row, int4 t) {
-  return decode_field([row](int i) { return __ldg(row + i); }, t);
-}
 
 struct FeeArgs {
   const float* alpha;   // (S,)
@@ -93,7 +59,9 @@ __device__ __forceinline__ float seg_part(const Row& row, const float* q, int f0
 // mul = 1 << (23 - n_man), ebias = (127 - bias) << 23 modulo 2^32.  The body
 // times mul puts the exponent at bit 23 and the mantissa's top at bit 22,
 // where adding ebias re-biases the exponent (the mantissa bits below cannot
-// carry); the sign is the field's top bit.  Bit-identical to decode_bits.
+// carry); the sign is the field's top bit.  Bit-identical to the reference's
+// decode_fields: the exponent re-bias wraps modulo 2^32 when bias > 127, as
+// its uint32 arithmetic does.
 __device__ __forceinline__ float widen_field(uint32_t fld, uint32_t body, uint32_t mul,
                                              uint32_t ebias) {
   const uint32_t bits = (fld & body) * mul + ebias;

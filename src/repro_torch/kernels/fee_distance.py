@@ -66,7 +66,7 @@ import torch
 
 from repro_torch.core import dfloat as dfl
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.dfloat_unpack import check_packed
+from repro_torch.kernels.dfloat_unpack import check_packed, widen_constants
 
 _LIB, _SKIP_LIB, _TIER_LIB = "fee_distance", "fee_skipdma", "fee_tiered"
 P, I, LL = _build.P, _build.I, _build.LL
@@ -111,12 +111,6 @@ def block_spans(cfg: dfl.DfloatConfig, seg: int) -> list[tuple[int, int]]:
     return spans
 
 
-def _widen_constants(sg: dfl.DfloatSegment) -> tuple[int, int]:
-    """``naszip::widen_field``'s mul and ebias of a format: ``1 << (23 -
-    n_man)`` and ``(127 - bias) << 23`` modulo 2^32."""
-    return 1 << (23 - sg.n_man), ((127 - sg.bias) << 23) % (1 << 32)
-
-
 def block_bursts(cfg: dfl.DfloatConfig, seg: int):
     """The host layout of the packed kernels' staged decode (it has no
     counterpart in the JAX package, whose blocks decode from the word span).
@@ -127,12 +121,12 @@ def block_bursts(cfg: dfl.DfloatConfig, seg: int):
     the (D, 4) int32 burst table, one row per feature: bit offset | word
     index relative to word ``4 * b0`` of its block << 5, the field mask
     ``(1 << width) - 1``, and its format's mul and ebias
-    (:func:`_widen_constants`)."""
+    (:func:`widen_constants`)."""
     bursts = [(w0 // BURST_WORDS, -(-w1 // BURST_WORDS))
               for w0, w1 in block_spans(cfg, seg)]
     pos, _ = dfl.feature_positions(cfg)
     table = np.array([(ofs | (wi - BURST_WORDS * bursts[f // seg][0]) << 5,
-                       (1 << sg.width) - 1, *_widen_constants(sg))
+                       (1 << sg.width) - 1, *widen_constants(sg))
                       for f, (wi, ofs, sg) in enumerate(pos)], np.uint32)
     return bursts, table.reshape(-1, 4).view(np.int32)
 
@@ -150,7 +144,7 @@ def block_formats(cfg: dfl.DfloatConfig, seg: int) -> list[tuple[int, int, int]]
         sg = block[0][2]
         static = (cfg.burst_bits == 128 and all(p[2] is sg for p in block)
                   and (k * seg - sg.start) % (128 // sg.width) == 0)
-        out.append((sg.width, *_widen_constants(sg)) if static
+        out.append((sg.width, *widen_constants(sg)) if static
                    else (0, 0, 0))
     return out
 

@@ -97,24 +97,33 @@ def fee_distance_tiered(xc, xr, ids, q, threshold, alpha, beta, margin, *,
               metric=metric, lane_mask=lane_mask)
 
 
-def dfloat_unpack_rows(packed, cfg: dfl.DfloatConfig, *, backend: str = "auto"):
-    """Packed-row decode: (C, W) words -> (C, D) f32, bit-exact."""
+def dfloat_unpack_rows(packed, cfg: dfl.DfloatConfig, *, ids=None,
+                       backend: str = "auto"):
+    """Packed-row decode: rows ``ids`` ((C,) int64, gathered inside the
+    kernel) of the (N, W) words, or all N, -> (C, D) f32, bit-exact."""
     if _plain(backend):
-        return ref.dfloat_unpack_ref(packed, cfg)
-    return unpack_kernel.dfloat_unpack(packed, cfg)
+        return ref.dfloat_unpack_ref(packed, cfg, ids)
+    return unpack_kernel.dfloat_unpack(packed, cfg, ids=ids)
 
 
 def dfloat_unpack_tiered_rows(xc, xr, coarse_cfg: dfl.DfloatConfig,
-                              resid_cfg: dfl.DfloatConfig, *,
+                              resid_cfg: dfl.DfloatConfig, *, ids=None,
                               backend: str = "auto"):
-    """Decode a (coarse, residual) tier-row pair back to (C, D) f32 —
-    bit-exact vs :func:`dfloat_unpack_rows` on the parent layout's rows.  An
-    empty tier decodes nothing."""
+    """Decode a (coarse, residual) tier-row pair (rows ``ids`` of it) back
+    to (C, D) f32 — bit-exact vs :func:`dfloat_unpack_rows` on the parent
+    layout's rows.  Each tier's launch writes its own columns of one output
+    matrix; an empty tier decodes nothing."""
     if _plain(backend):
-        return ref.dfloat_unpack_tiered_ref(xc, xr, coarse_cfg, resid_cfg)
-    parts = [unpack_kernel.dfloat_unpack(x, c)
-             for x, c in ((xc, coarse_cfg), (xr, resid_cfg)) if c.dim]
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        return ref.dfloat_unpack_tiered_ref(xc, xr, coarse_cfg, resid_cfg, ids)
+    n = xc.shape[0] if ids is None else ids.shape[0]
+    out = torch.empty((n, coarse_cfg.dim + resid_cfg.dim), dtype=torch.float32,
+                      device=xc.device)
+    if coarse_cfg.dim:
+        unpack_kernel.dfloat_unpack(xc, coarse_cfg, ids=ids, out=out)
+    if resid_cfg.dim:
+        unpack_kernel.dfloat_unpack(xr, resid_cfg, ids=ids, out=out,
+                                    col=coarse_cfg.dim)
+    return out
 
 
 # the Dfloat process module over a whole packed DB is the same decode

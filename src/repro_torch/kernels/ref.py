@@ -89,13 +89,14 @@ def fee_distance_packed_gather_ref(xp, ids, q, threshold, alpha, beta, margin,
 
 
 def dfloat_unpack_tiered_ref(xc, xr, coarse_cfg: dfl.DfloatConfig,
-                             resid_cfg: dfl.DfloatConfig):
-    """Decode a (coarse (C, Wc), residual (C, Wr)) tier-row pair back to
-    (C, D) f32: each tier is its own burst-aligned bitstream, and
+                             resid_cfg: dfl.DfloatConfig, ids=None):
+    """Decode a (coarse (N, Wc), residual (N, Wr)) tier-row pair (rows
+    ``ids`` of it, as :func:`dfloat_unpack_ref` takes them) back to (C, D)
+    f32: each tier is its own burst-aligned bitstream, and
     ``dfloat.split_config`` keeps every feature's format, so the result
     equals the parent layout's decode bit for bit."""
-    return torch.cat([dfl.unpack_rows(xc, coarse_cfg),
-                      dfl.unpack_rows(xr, resid_cfg)], dim=1)
+    return torch.cat([dfloat_unpack_ref(xc, coarse_cfg, ids),
+                      dfloat_unpack_ref(xr, resid_cfg, ids)], dim=1)
 
 
 def fee_distance_tiered_ref(q, xc, xr, threshold, alpha, beta, margin, *,
@@ -129,6 +130,15 @@ def fee_distance_tiered_gather_ref(xc, xr, ids, q, threshold, alpha, beta,
     return fold_lane_mask(out, lane_mask)
 
 
-def dfloat_unpack_ref(packed, cfg: dfl.DfloatConfig):
-    """Plain version of the ``dfloat_unpack`` kernel (bit-exact decoder)."""
-    return dfl.unpack_rows(packed, cfg)
+def dfloat_unpack_ref(packed, cfg: dfl.DfloatConfig, ids=None):
+    """Plain version of the ``dfloat_unpack`` kernel (bit-exact decoder):
+    rows ``ids`` ((C,) int64) of ``packed``, or all of them; an id that
+    names no row decodes as zeros, as in the kernel."""
+    if ids is None:
+        return dfl.unpack_rows(packed, cfg)
+    if not packed.shape[0]:
+        return torch.zeros((ids.shape[0], cfg.dim), dtype=torch.float32,
+                           device=packed.device)
+    ok = (ids >= 0) & (ids < packed.shape[0])
+    rows = dfl.unpack_rows(packed[torch.where(ok, ids, 0)], cfg)
+    return torch.where(ok[:, None], rows, 0.0)

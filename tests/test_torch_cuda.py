@@ -14,7 +14,12 @@ over row views at pitch W and W + 4, with the row base on and off 16 B, and
 the tiered kernel takes each tier's path per tier, at every split.  The two
 skip-DMA kernels share one warp loop over two 32-lane tiles: partial and
 empty tiles, dead lanes and tiles that all exit at segment 0 give the bits
-of the kernels whose contract they share.
+of the kernels whose contract they share.  The decode kernel is bit-exact
+with its plain version on every route: whole matrices and row views (pitch
+W and W + 4, base on and off 16 B), rows gathered by ids that repeat or name
+no row, outputs written at a column offset whose runs are not 16 B aligned,
+no rows and one row, the tiered pair written into one matrix, and layouts
+that take its per-field path.
 """
 import numpy as np
 import pytest
@@ -24,7 +29,7 @@ from fee_cases import inputs
 from repro_torch.core import dfloat as dfl
 from repro_torch.kernels import dfloat_unpack as unpack_kernel
 from repro_torch.kernels import fee_distance as fee_kernel
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.check import (SCALAR_SHAPES, SHAPES, compare_fee, near_threshold,
                                        random_layout)
 
@@ -241,3 +246,94 @@ def test_cuda_packed_skipdma_partial_tiles(cuda, n_q, lanes):
                  fee_kernel.fee_distance(xq, *args, **kw)):
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+def _unpack_routes(cuda, packed, cfg, seed):
+    """The decode kernel against its plain version over ``packed`` (CUDA)
+    on every route: pitch W and W + 4 with the base on and off 16 B, whole
+    and gathered by ids (repeats, and two that name no row), into a new
+    matrix and at columns 0-3 of a wider one."""
+    host = packed.cpu()
+    n = packed.shape[0]
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, max(n, 1), 2 * n + 3)
+    ids[[0, -1]] = (-1, n)
+    ids_t = torch.from_numpy(ids)
+    want_all = ref.dfloat_unpack_ref(host, cfg)
+    want_ids = ref.dfloat_unpack_ref(host, cfg, ids_t)
+    d = cfg.dim
+    for pad, offset in ((0, 0), (4, 0), (0, 1), (4, 1)):
+        rows = _row_view(packed, pad, offset)
+        assert torch.equal(unpack_kernel.dfloat_unpack(rows, cfg).cpu(), want_all), (pad, offset)
+        got = unpack_kernel.dfloat_unpack(rows, cfg, ids=ids_t.to(cuda))
+        assert torch.equal(got.cpu(), want_ids), (pad, offset)
+        for col in range(4):
+            out = torch.full((len(ids), d + 3), -7.0, device=cuda)
+            unpack_kernel.dfloat_unpack(rows, cfg, ids=ids_t.to(cuda), out=out, col=col)
+            out = out.cpu()
+            assert torch.equal(out[:, col:col + d], want_ids), (pad, offset, col)
+            assert bool((out[:, :col] == -7).all() and (out[:, col + d:] == -7).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d,seg", SHAPES + SCALAR_SHAPES + [(100, 128, 16)])
+def test_cuda_unpack_every_route(cuda, c, d, seg):
+    """Random layouts at the kernel tests' shapes (D = 960 included), and
+    the main path's one 16-bit run (W = 64 words, so pitch W + 4 is 68)."""
+    rng = np.random.default_rng(c + d + seg)
+    x = rng.standard_normal((c, d)).astype(np.float32)
+    if (c, d, seg) == (100, 128, 16):
+        cfg = dfl.make_config(d, [(16, 5, d)], x)
+        assert dfl.packed_words(cfg) == 64
+    else:
+        cfg, _ = random_layout(rng, d, x)
+    assert unpack_kernel.by_burst(cfg)
+    packed = torch.from_numpy(dfl.pack_db(x, cfg).view(np.int32)).to(cuda)
+    _unpack_routes(cuda, packed, cfg, c)
+    # no rows and one row, whole and gathered
+    for rows in (packed[:0], packed[:1]):
+        host = rows.cpu()
+        assert torch.equal(unpack_kernel.dfloat_unpack(rows, cfg).cpu(),
+                           ref.dfloat_unpack_ref(host, cfg))
+        for ids in (torch.zeros(0, dtype=torch.int64), torch.tensor([0]), torch.tensor([3])):
+            got = unpack_kernel.dfloat_unpack(rows, cfg, ids=ids.to(cuda))
+            assert torch.equal(got.cpu(), ref.dfloat_unpack_ref(host, cfg, ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("burst_bits,runs", [(64, [(16, 5, 40), (12, 4, 24)]),
+                                             (256, [(21, 6, 50), (14, 5, 14)]),
+                                             (128, [(20, 6, 30), (16, 5, 34)])])
+def test_cuda_unpack_field_path(cuda, burst_bits, runs):
+    """Bursts of other than 128 bits, or a width outside the palette, take
+    the per-field path of the same kernel source: exact on every route."""
+    x = np.random.default_rng(burst_bits).standard_normal((77, 64)).astype(np.float32)
+    cfg = dfl.make_config(64, runs, x, burst_bits=burst_bits)
+    assert not unpack_kernel.by_burst(cfg)
+    packed = torch.from_numpy(dfl.pack_db(x, cfg).view(np.int32)).to(cuda)
+    _unpack_routes(cuda, packed, cfg, burst_bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d,seg", SHAPES)
+def test_cuda_unpack_tiered_pair_every_split(cuda, c, d, seg):
+    """The tiered decode writes each tier at its columns of one matrix (two
+    launches): bit-exact with the parent layout's decode at every split,
+    whole and gathered by id."""
+    rng = np.random.default_rng(c + 2 * d)
+    x = rng.standard_normal((c, d)).astype(np.float32)
+    cfg, _ = random_layout(rng, d, x)
+    packed = torch.from_numpy(dfl.pack_db(x, cfg).view(np.int32))
+    ids = torch.from_numpy(rng.integers(-1, c + 1, 3 * c))
+    whole = ref.dfloat_unpack_ref(packed, cfg)
+    gathered = ref.dfloat_unpack_ref(packed, cfg, ids)
+    for split in range(d // seg + 1):
+        ccfg, rcfg = dfl.split_config(cfg, split * seg)
+        tiers = [torch.from_numpy(t.view(np.int32)).to(cuda)
+                 for t in dfl.pack_tiers(x, cfg, split * seg)]
+        before = unpack_kernel.dfloat_unpack.launches
+        got = ops.dfloat_unpack_tiered_rows(*tiers, ccfg, rcfg)
+        assert unpack_kernel.dfloat_unpack.launches - before == (ccfg.dim > 0) + (rcfg.dim > 0)
+        assert torch.equal(got.cpu(), whole), split
+        got = ops.dfloat_unpack_tiered_rows(*tiers, ccfg, rcfg, ids=ids.to(cuda))
+        assert torch.equal(got.cpu(), gathered), split

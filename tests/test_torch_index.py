@@ -147,7 +147,7 @@ def test_corrupt_artifact_is_refused(built, tmp_path):
 
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys; import repro_torch, repro_torch.index, repro_torch.kernels.ops, "
-            "repro_torch.kernels._build, repro_torch.utils, chip_smoke; "
+            "repro_torch.kernels._build, repro_torch.utils, repro_torch.ndpsim, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
     env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin"}

@@ -202,15 +202,16 @@ def test_exclude_dead_matches_jax():
 
 
 def test_unported_paths_raise_naming_the_queue(pair):
-    """The backends not ported yet raise naming their queue; tiered storage
-    and the skip-DMA backend build searchers (their search is held against
-    the JAX package in ``test_torch_tiered.py`` and below)."""
+    """The backend not ported yet (sharded) raises naming its queue; tiered
+    storage, the skip-DMA backend and the ndpsim backend build searchers
+    (their search is held against the JAX package in
+    ``test_torch_tiered.py``, below and in ``test_torch_ndpsim.py``)."""
     _, _, port, *_ = pair["l2"]
     port.searcher("local", dataclasses.replace(BASE, storage="tiered"))
     port.searcher("local", dataclasses.replace(BASE, fee_backend="pallas_skip_dma"))
-    for backend in ("sharded", "ndpsim"):
-        with pytest.raises(NotImplementedError, match="queue A"):
-            port.searcher(backend, BASE)
+    port.searcher("ndpsim", BASE)
+    with pytest.raises(NotImplementedError, match="queue A"):
+        port.searcher("sharded", BASE)
 
 
 @pytest.mark.parametrize("storage", ["f32", "packed"])
