@@ -52,11 +52,30 @@ Phases, each of which fails the run when its check fails:
    ``node``) on >= 99% of the queries; one ``ndpsim`` line per storage with
    the traced search's wall time and launches, the host replay's seconds
    and the simulator's projection of the paper's DIMM-NDP hardware (not a
-   time of this card).
+   time of this card);
+8. churn on the card (``repro_torch.streaming.MutableIndex`` over phase 3's
+   index, ``ef_build=64``, ``sub_batch=64``): 4 seeded rounds, each appending
+   1,024 rows (copies of random base rows plus Gaussian noise at 5% of the
+   per-dimension standard deviation) and deleting 512 random alive rows (half
+   the rows of the full traffic, a cut printed as ``reduced``),
+   then ``freeze()`` and all queries at ``SearchParams(ef=64, k=10)`` with
+   ``storage="f32"`` and ``"packed"`` (on the last generation also
+   ``"tiered"`` and both skip-DMA searches), launch counts reset before each
+   search and read after it as in phase 3.  No tombstoned id may appear in
+   any result; packed ids must equal f32 ids, tiered and skip-DMA ids and
+   distances their storage's default ones; recall@10 against the exact
+   top-10 over the survivors >= 0.80, and on the last generation no more
+   than 2 points below phase 3's; the first generation's snapshot must
+   return its round-1 ids again after round 4; ``save_delta`` then
+   ``MutableIndex.load`` on the card must give bit-equal arrays and equal
+   ids and distances.  One ``churn`` line per round (rates, seconds, QPS,
+   recall, ``MutationStats`` and the ndpsim write-burst model).
 
 The second-to-last line is the ``kernels`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  ``--n`` / ``--queries`` cut the data for a
-quick run and print a ``reduced`` line.
+quick run and print a ``reduced`` line; ``--churn-append`` /
+``--churn-delete`` set phase 8's rows a round
+(``--churn-append 2048 --churn-delete 1024`` is the full traffic).
 """
 from __future__ import annotations
 
@@ -805,10 +824,151 @@ def ndpsim_phase(index, db, dev, kernels, n_q=NDPSIM_QUERIES):
     return reports
 
 
+# phase 8's traffic: 4 rounds of 2,048 appends and 1,024 deletes, cut to half
+# the rows a round because at full traffic the phase took 283-311 s on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md), over its 3-minute budget
+CHURN_ROUNDS = 4
+CHURN_FULL = dict(append=2048, delete=1024)
+CHURN = dict(append=1024, delete=512)
+CHURN_ISOLATION_QUERIES = 256
+# searches of every generation, then the ones added on the last
+CHURN_SEARCHES = ("f32", "packed")
+CHURN_LAST = ("tiered", "f32 skip-DMA", "packed skip-DMA")
+
+
+def timed_sync(fn):
+    """(result, seconds) of ``fn()``, the device drained at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def churn_phase(index, db, dev, kernels, recall_main, *, append, delete):
+    """Phase 8: a MutableIndex over the loaded index under seeded appends and
+    deletes, its snapshots searched on the card after every round, then its
+    WAL saved and replayed on the card.  Returns the per-round reports."""
+    from repro_torch.core import dfloat as dfl
+    from repro_torch.data.synthetic import exact_topk, recall_at_k
+    from repro_torch.index import SearchParams
+    from repro_torch.streaming import MutableIndex
+
+    searches = {name: (fields, must, must_not) for name, fields, must, must_not in SEARCHES}
+    rng = np.random.default_rng(0)
+    noise = 0.05 * db.vectors.std(axis=0)
+    mi = MutableIndex(index, ef_build=64, sub_batch=64)
+    log(f"churn: capacity {mi.capacity} rows for {index.n}, device mirrors on {mi.device}")
+    sub_q = db.queries[:CHURN_ISOLATION_QUERIES]
+    first = None
+    reports = []
+    for r in range(CHURN_ROUNDS):
+        src = rng.integers(0, db.n, append)
+        new = db.vectors[src] + (noise * rng.standard_normal((append, db.dim))
+                                 ).astype(np.float32)
+        c0 = mi.candidate_s
+        _, append_s = timed_sync(lambda: mi.append(new))
+        candidate_s = mi.candidate_s - c0
+        dels = rng.choice(mi.alive_ids(), delete, replace=False)
+        _, delete_s = timed_sync(lambda: mi.delete(dels))
+        r0 = mi.stats.repair_s
+        snap, freeze_s = timed_sync(mi.freeze)
+        repair_s = mi.stats.repair_s - r0
+        dead = mi._dead.copy()
+        # the snapshot's first-search uploads, each timed on its own
+        _, f32_upload_s = timed_sync(lambda: snap.device_db(True, "f32", dev))
+        _, db_q_s = timed_sync(lambda: dfl.emulate_db(snap.device_db(True, "f32", dev),
+                                                      snap.dfloat_cfg))
+        _, packed_upload_s = timed_sync(lambda: snap.device_db(True, "packed", dev))
+        _, adj_upload_s = timed_sync(lambda: (snap.device_adjacency(dev),
+                                              snap.device_tombstone(dev)))
+        up = dict(f32_upload_s=f32_upload_s, db_q_s=db_q_s,
+                  packed_upload_s=packed_upload_s, adjacency_upload_s=adj_upload_s)
+        last = r == CHURN_ROUNDS - 1
+        if last:
+            _, up["tier_repack_s"] = timed_sync(snap.tier_arrays)
+            _, up["tiered_upload_s"] = timed_sync(lambda: snap.device_db(True, "tiered", dev))
+        surv = mi.alive_ids()
+        gt = surv[exact_topk(torch.from_numpy(mi._rot[surv]).to(dev),
+                             mi.spca.transform(db.queries), 10, db.metric, device=dev)]
+        res, qps = {}, {}
+        for name in CHURN_SEARCHES + (CHURN_LAST if last else ()):
+            fields, must, must_not = searches[name]
+            for fn in kernels.values():
+                fn.launches = 0
+            res[name], secs = run_search(snap, db, SearchParams(ef=64, k=10, **fields), dev)
+            counts = {k: fn.launches for k, fn in kernels.items()}
+            log(json.dumps({"launches": {"search": f"churn round {r} {name}", **counts}}))
+            for k in must:
+                check(counts[k] > 0, f"churn round {r}: kernel {k} was not launched by "
+                      f"the {name} search")
+            for k in must_not:
+                check(counts[k] == 0, f"churn round {r}: the {name} search launched {k}")
+            ids = res[name].ids
+            check(not dead[ids[ids >= 0]].any(),
+                  f"churn round {r}: the {name} search returned a tombstoned id")
+            qps[name] = len(db.queries) * len(secs) / sum(secs)
+        check(np.array_equal(res["packed"].ids, res["f32"].ids),
+              f"churn round {r}: packed ids differ from f32 ids")
+        for name, base in (("tiered", "packed"), ("f32 skip-DMA", "f32"),
+                           ("packed skip-DMA", "packed")):
+            if name in res:
+                check(np.array_equal(res[name].ids, res[base].ids)
+                      and np.array_equal(res[name].dists, res[base].dists),
+                      f"churn round {r}: {name} ids and distances differ from {base}")
+        recall = recall_at_k(res["f32"].ids, gt, 10)
+        check(recall >= 0.80, f"churn round {r}: recall@10 {recall:.4f} < 0.80")
+        if first is None:
+            first = (snap, res["f32"].ids[:CHURN_ISOLATION_QUERIES])
+        rep = dict(round=r, generation=snap.generation, n_rows=mi.n, n_alive=mi.n_alive,
+                   appended=append, deleted=delete, append_rows_per_s=append / append_s,
+                   append_s=append_s, candidate_share_of_append=candidate_s / append_s,
+                   delete_s=delete_s, repair_s=repair_s, freeze_s=freeze_s, **up,
+                   qps=qps, recall_at_10=recall,
+                   stats=dataclasses.asdict(mi.stats),
+                   write_model={"what": "ndpsim write-burst model of the paper's DIMM-NDP "
+                                        "hardware, not a time of this card",
+                                **dataclasses.asdict(mi.write_stats())})
+        log(json.dumps({"churn": rep}))
+        reports.append(rep)
+    check(recall >= recall_main - 0.02, f"churn: last recall@10 {recall:.4f} more than "
+          f"2 points below the main path's {recall_main:.4f}")
+
+    # snapshot isolation: the first generation still serves its own results
+    snap0, ids0 = first
+    again = snap0.searcher("local", SearchParams(ef=64, k=10), device=dev)(sub_q)
+    check(np.array_equal(again.ids, ids0), "churn: the first snapshot's results changed")
+
+    # the WAL: saved beside the base, replayed on the card
+    path = BUILD / "chip_smoke_churn"
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        _, save_s = timed_sync(lambda: mi.save_delta(path))
+        m2, load_s = timed_sync(lambda: MutableIndex.load(path, device=dev))
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    for f in ("_rot", "_packed", "_adj", "_dead", "_coarse", "_resid"):
+        a, b = getattr(mi, f), getattr(m2, f)
+        check((a is None and b is None) or np.array_equal(a, b),
+              f"churn: the replayed {f} differs from the live one")
+    params = SearchParams(ef=64, k=10)
+    live = mi.search(db.queries, params, device=dev)
+    replayed = m2.search(db.queries, params, device=dev)
+    check(np.array_equal(live.ids, replayed.ids) and np.array_equal(live.dists, replayed.dists),
+          "churn: the replayed index returns other ids or distances")
+    log(json.dumps({"churn_wal": {"save_s": save_s, "load_and_replay_s": load_s,
+                                  "arrays_bit_equal": True, "search_equal": True}}))
+    return reports
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="base vectors")
     ap.add_argument("--queries", type=int, default=10_000, help="evaluation queries")
+    ap.add_argument("--churn-append", type=int, default=CHURN["append"],
+                    help="phase 8: rows appended a round")
+    ap.add_argument("--churn-delete", type=int, default=CHURN["delete"],
+                    help="phase 8: rows deleted a round")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -868,6 +1028,14 @@ def main(argv=None) -> int:
         check(ndpsim_phase(index, db, dev, kernels, NDPSIM_CUT_QUERIES) is not None,
               "ndpsim: a replay of 64 queries took longer than the limit too")
     log(f"ndpsim phase {time.perf_counter() - t0:.1f} s")
+    churn = dict(append=args.churn_append, delete=args.churn_delete)
+    if churn != CHURN_FULL:
+        log(json.dumps({"reduced": {"churn": churn, "from": CHURN_FULL,
+                                    "why": "phase 8 at full traffic took 283-311 s, over "
+                                           "its 3-minute budget"}}))
+    t0 = time.perf_counter()
+    churn_phase(index, db, dev, kernels, rep["f32"]["recall_at_10"], **churn)
+    log(json.dumps({"churn_phase_s": time.perf_counter() - t0}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

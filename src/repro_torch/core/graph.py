@@ -69,9 +69,13 @@ def _occlusion_prune(vectors: torch.Tensor, adj: np.ndarray, metric: str,
     already-kept closer neighbor l occludes it, i.e. d(l, j) < d(p, j).
     Distances keep the JAX package's difference-of-squares form.  Each row
     keeps its first ``keep`` survivors in list order, backfilled with the
-    nearest pruned neighbors."""
+    nearest pruned neighbors.  The keep decisions are sequential in the list
+    position; for host tensors (one streaming insert's few dozen candidates)
+    they run as numpy steps, which cost a fraction of torch's per-operation
+    dispatch, and on the device beside the distances."""
     n, m = adj.shape
     d = vectors.shape[1]
+    on_host = vectors.device.type == "cpu"
     adj_t = torch.as_tensor(adj, device=vectors.device).long()
     block = max(1, block_bytes // (4 * m * m * d))
     out = []
@@ -85,13 +89,18 @@ def _occlusion_prune(vectors: torch.Tensor, adj: np.ndarray, metric: str,
         else:
             d_pj = -(nb * p).sum(-1)
             d_ll = -torch.einsum("bmd,bnd->bmn", nb, nb)
-        kept = torch.zeros((e - s, m), dtype=torch.bool, device=vectors.device)
+        if on_host:
+            d_pj, d_ll = d_pj.numpy(), d_ll.numpy()
+            kept = np.zeros((e - s, m), bool)
+        else:
+            kept = torch.zeros((e - s, m), dtype=torch.bool, device=vectors.device)
         kept[:, 0] = True
         for j in range(1, m):
             # occluded if any kept l<j (closer to p) with d(l,j) < d(p,j)
             occ = (kept[:, :j] & (d_ll[:, :j, j] < d_pj[:, j: j + 1])).any(1)
             kept[:, j] = ~occ
         # kept neighbors first, then the pruned ones, each in list order
+        kept = torch.as_tensor(kept, device=vectors.device)
         order = torch.argsort((~kept).to(torch.int8), dim=1, stable=True)
         out.append(torch.gather(adj_t[s:e], 1, order[:, :keep]))
     return torch.cat(out).to(torch.int32).cpu().numpy()
@@ -147,6 +156,36 @@ def build_graph(vectors: np.ndarray, m: int = 16, metric: str = "l2",
         lvl += 1
     entry = int(levels[-1][0][0])
     return GraphIndex(levels=levels, entry=entry, m=m)
+
+
+# ---------------------------------------------------------------------------
+# incremental repair (streaming mutation — repro_torch.streaming)
+# ---------------------------------------------------------------------------
+
+
+def prune_candidates(p_vec: np.ndarray, cand_ids: np.ndarray,
+                     cand_vecs: np.ndarray, metric: str,
+                     keep: int) -> np.ndarray:
+    """Occlusion-prune one node's candidate neighborhood.
+
+    ``cand_ids``/``cand_vecs`` must be sorted ascending by distance to
+    ``p_vec`` (beam-search output order).  Reuses :func:`_occlusion_prune` on
+    a local id remap — slot 0 is the node itself, slots 1..C the candidates —
+    so incremental inserts and delete repairs apply the exact same RNG
+    heuristic (including the nearest-pruned backfill) as the offline build.
+    One node's prune is a few dozen rows: it runs on CPU tensors, since a
+    device would pay a launch per step and a sync per row.  Returns up to
+    ``keep`` global ids.
+    """
+    c = len(cand_ids)
+    if c == 0:
+        return np.empty(0, np.int32)
+    local_vecs = torch.from_numpy(
+        np.concatenate([p_vec[None], cand_vecs]).astype(np.float32))
+    local_adj = np.arange(1, c + 1, dtype=np.int32)[None]
+    kept = _occlusion_prune(local_vecs, local_adj, metric, min(keep, c))[0]
+    kept = kept[kept > 0] - 1
+    return np.asarray(cand_ids, np.int32)[kept]
 
 
 # ---------------------------------------------------------------------------

@@ -319,9 +319,9 @@ def _search_batch(vectors, adj, fee, tombstone, queries, entries, *,
     out = dict(ids=beam_ids[:, : cfg.k], dists=beam_d[:, : cfg.k])
     if trace:
         out["trace"] = traces
-        out["hops"] = (traces["node"] >= 0).any(-1).sum(-1)
+        out["hops"] = (traces["node"] >= 0).any(-1).sum(-1).to(torch.int32)
         for k in cnt_keys:
-            out[k] = traces[k].sum(-1)
+            out[k] = traces[k].sum(-1).to(torch.int32)
     else:
         *cnt, out["hops"] = counters.to(torch.int32).unbind(1)
         out.update(zip(cnt_keys, cnt))
@@ -364,11 +364,12 @@ def make_searcher(vectors, adj, cfg: SearchConfig,
     def search(queries, entries):
         queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
         entries = torch.as_tensor(entries, dtype=torch.int32, device=dev)
+        # an empty batch is one chunk of no queries: (0, k) results
         outs = [_search_batch(vectors, adj, fp, tombstone,
                               queries[s: s + chunk].contiguous(),
                               entries[s: s + chunk], cfg=cfg, trace=trace,
                               dfl_cfg=dfl_cfg)
-                for s in range(0, queries.shape[0], chunk)]
+                for s in range(0, max(queries.shape[0], 1), chunk)]
         if len(outs) == 1:
             return outs[0]
         cat = lambda vs: (torch.cat(vs) if isinstance(vs[0], torch.Tensor)

@@ -37,9 +37,13 @@ from repro_torch.index import backends as backends_mod
 from repro_torch.index.types import FeeFit, IndexSpec, SearchParams, SearchResult
 from repro_torch.resilience import CorruptArtifactError
 from repro_torch.resilience import checksum as cks
+from repro_torch.resilience import faults
 
 FORMAT_VERSION = 3          # v3 persists the (coarse, residual) tier split;
                             # v2 dropped the persisted db_q copy
+DELTA_FORMAT_VERSION = 3    # streaming-mutation delta segments (WAL) reuse the
+                            # number, but live under <index>/delta/ with a
+                            # manifest.json — an index dir always has spec.json
 KNOWN_FORMATS = (1, 2, 3)
 
 
@@ -85,6 +89,18 @@ class Index:
     @property
     def n(self) -> int:
         return self.db_rot.shape[0]
+
+    @property
+    def n_alive(self) -> int:
+        """Rows that can appear in results (``n`` minus tombstoned/tail)."""
+        if self.tombstone is None:
+            return self.n
+        # popcount over the bitmap words (O(n/32)), masking bits >= n
+        words = self.tombstone[: -(-self.n // 32)].astype(np.uint32)
+        tail_bits = self.n & 31
+        if tail_bits:
+            words[-1] &= np.uint32((1 << tail_bits) - 1)
+        return self.n - int(np.unpackbits(words.view(np.uint8)).sum())
 
     @property
     def dim(self) -> int:
@@ -298,17 +314,28 @@ class Index:
         dev = resolve_device(device)
         path = Path(path)
         if not (path / "spec.json").exists():
+            hint = (" (found manifest.json — this looks like a checkpoint or "
+                    "streaming delta segment, not an index directory; delta "
+                    "segments are replayed via repro_torch.streaming"
+                    ".MutableIndex.load on the *base* index directory)"
+                    if (path / "manifest.json").exists() else "")
             raise ValueError(f"{path} is not a naszip index directory: "
-                             "no spec.json")
+                             f"no spec.json{hint}")
         meta = json.loads((path / "spec.json").read_text())
         version = meta.get("format_version")
         if version not in KNOWN_FORMATS:
             raise ValueError(
                 f"unsupported index format v{version} at {path}: this build "
-                f"reads formats {KNOWN_FORMATS}")
+                f"reads formats {KNOWN_FORMATS} — written by a newer naszip; "
+                "upgrade this package to read it.  (Streaming delta segments "
+                "also stamp a format_version, but they live under "
+                "<index>/delta/ with a manifest.json, never a spec.json — "
+                "replay them via repro_torch.streaming.MutableIndex.load on "
+                "the base index directory.)")
         try:
             with np.load(path / "arrays.npz", allow_pickle=False) as z:
-                arrays = {k: z[k] for k in z.files}
+                arrays = {k: faults.corrupt("index.read_arrays", z[k])
+                          for k in z.files}
         except Exception as e:   # truncated/torn zip containers raise variously
             raise CorruptArtifactError(
                 f"{path}: unreadable arrays.npz ({e}) — torn write or "

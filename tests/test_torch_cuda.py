@@ -337,3 +337,43 @@ def test_cuda_unpack_tiered_pair_every_split(cuda, c, d, seg):
         assert torch.equal(got.cpu(), whole), split
         got = ops.dfloat_unpack_tiered_rows(*tiers, ccfg, rcfg, ids=ids.to(cuda))
         assert torch.equal(got.cpu(), gathered), split
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier_split", [None, 2])
+def test_cuda_churn_wal_replay_bit_identical(cuda, tmp_path, tier_split):
+    """A unit index churned on the card (candidate search on the device
+    mirrors): no tombstone in any storage's results, and its WAL replays on
+    the card to the same arrays and the same ids and distances."""
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.index import Index, IndexSpec, SearchParams
+    from repro_torch.streaming import MutableIndex
+
+    db = make_dataset("unit", device=cuda, cache=False)
+    idx = Index.build(db, IndexSpec.for_db(db, m=8, dfloat_recall_target=0.8,
+                                           tier_split=tier_split), device=cuda)
+    mi = MutableIndex(idx, ef_build=32, sub_batch=64)
+    assert mi.device.type == "cuda" and mi._rot_d.is_cuda
+    rng = np.random.default_rng(4)
+    for _ in range(2):
+        src = rng.integers(0, db.n, 256)
+        mi.append(db.vectors[src] + 0.05 * rng.standard_normal(
+            (256, db.dim)).astype(np.float32))
+        mi.delete(rng.choice(mi.alive_ids(), 128, replace=False))
+        mi.freeze()
+    dead = np.nonzero(mi._dead)[0]
+    results = {}
+    for storage in ("f32", "packed", "tiered"):
+        res = mi.search(db.queries, SearchParams(ef=48, k=10, storage=storage))
+        assert not np.isin(res.ids, dead).any(), storage
+        results[storage] = res
+    assert np.array_equal(results["f32"].ids, results["packed"].ids)
+    assert np.array_equal(results["tiered"].dists, results["packed"].dists)
+    path = mi.save_delta(tmp_path / "wal.naszip")
+    m2 = MutableIndex.load(path, device=cuda)
+    for f in ("_rot", "_packed", "_adj", "_dead", "_coarse", "_resid"):
+        a, b = getattr(mi, f), getattr(m2, f)
+        assert (a is None and b is None) or np.array_equal(a, b), f
+    params = SearchParams(ef=48, k=10, storage="f32")
+    a, b = mi.search(db.queries, params), m2.search(db.queries, params)
+    assert np.array_equal(a.ids, b.ids) and np.array_equal(a.dists, b.dists)

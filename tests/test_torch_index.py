@@ -147,7 +147,9 @@ def test_corrupt_artifact_is_refused(built, tmp_path):
 
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys; import repro_torch, repro_torch.index, repro_torch.kernels.ops, "
-            "repro_torch.kernels._build, repro_torch.utils, repro_torch.ndpsim, chip_smoke; "
+            "repro_torch.kernels._build, repro_torch.utils, repro_torch.ndpsim, "
+            "repro_torch.obs, repro_torch.resilience.faults, repro_torch.ft.checkpoint, "
+            "repro_torch.streaming, repro_torch.launch.churn, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
     env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin"}
@@ -165,6 +167,17 @@ def test_entry_points_raise_without_a_card(built, tmp_path, monkeypatch):
         Index.load(path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port.searcher("local", PARAMS, device="cuda")
+    # streaming: a MutableIndex over a card index, its loader and the churn
+    # driver
+    from repro_torch.launch import churn
+    from repro_torch.streaming import MutableIndex
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MutableIndex(dataclasses.replace(port, device=torch.device("cuda")))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MutableIndex.load(path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        churn.main([])
     # the data and graph helpers and the FEE device views default to the card too
     for call in (lambda: make_dataset("unit", cache=False),
                  lambda: _generate(DATASETS["unit"]),

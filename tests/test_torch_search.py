@@ -239,3 +239,19 @@ def test_skip_dma_search_matches_jax(pair, storage):
     auto = port.search(q, dataclasses.replace(params, fee_backend="auto"))
     assert np.array_equal(got.ids, auto.ids)
     assert np.array_equal(got.dists, auto.dists)
+
+
+@pytest.mark.parametrize("n_q", [0, 3])
+@pytest.mark.parametrize("storage,trace", [("f32", False), ("packed", False),
+                                           ("f32", True)])
+def test_result_shapes_and_dtypes_match_jax(pair, storage, trace, n_q):
+    """Ids, distances and counters have the reference's shapes and dtypes,
+    for a batch of no queries too (the port's chunked search loop once
+    raised IndexError on it, and its traced counters were int64)."""
+    db, ref, port, *_ = pair["l2"]
+    params = dataclasses.replace(BASE, storage=storage, trace=trace)
+    want = ref.search(db.queries[:n_q], jix.SearchParams(**dataclasses.asdict(params)))
+    got = port.search(db.queries[:n_q], params)
+    for key in ("ids", "dists", "hops", "n_eval", "dims"):
+        assert getattr(got, key).shape == np.asarray(getattr(want, key)).shape, key
+        assert getattr(got, key).dtype == np.asarray(getattr(want, key)).dtype, key
