@@ -71,6 +71,28 @@ Phases, each of which fails the run when its check fails:
    ids and distances.  One ``churn`` line per round (rates, seconds, QPS,
    recall, ``MutationStats`` and the ndpsim write-burst model).
 
+9. the serving tier on the card (``repro_torch.serve`` over phase 3's
+   index): (9a) a ``Server`` over 36 cells (ef 32/64/128 x f32/packed/tiered
+   x batch 1/4/16/32) warmed, each storage's warm-up launching its kernels
+   and no other FEE kernel (``serve_warmup``); (9b) a burst of 512 requests
+   cycling k, ef and storage, every response bit-identical to its query
+   replayed through ``run_bucketed`` at its (ef, batch bucket), and within
+   each such cell packed ids equal to f32 ids, tiered ids and distances
+   packed ones, recall@10 of the ef-64 f32 requests >= 0.80
+   (``serve_replay``); (9c) Poisson traffic at 0.5 and 0.9 of C = 32 / the
+   (ef 64, f32, bucket 32) cell's steady seconds for 5 s each, f32 and
+   packed alternating, every future resolved with a status
+   (``serve_load``); (9d) ``torch.profiler`` over 5 batches at buckets 1 and
+   32 (``serve_profile``); (9e) a ``MutableIndex`` served under Poisson
+   traffic at 0.5 C for 6 s while 64 rows are appended and 16 deleted each
+   second: every response ok, >= 2 generations, each generation's first
+   response replayed on its snapshot, no tombstoned id, >= 1 delta install,
+   each re-uploading < 25% of the payload; a failing install rolls back and
+   the previous generation serves on; one more delta install equals a cold
+   ``DeviceCache(donate=False)`` install (``serve_swap``).  The load and
+   churn run for 5 and 6 s, cut from 15 and 20 s and printed as
+   ``reduced``: at the full durations the script ran past 600 s.
+
 The second-to-last line is the ``kernels`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  ``--n`` / ``--queries`` cut the data for a
 quick run and print a ``reduced`` line; ``--churn-append`` /
@@ -80,6 +102,7 @@ quick run and print a ``reduced`` line; ``--churn-append`` /
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import shutil
@@ -961,6 +984,462 @@ def churn_phase(index, db, dev, kernels, recall_main, *, append, delete):
     return reports
 
 
+# phase 9: the serving tier over phase 3's index
+SERVE_KERNELS = {"f32": ("fee_distance",),
+                 "packed": ("fee_distance_packed", "dfloat_unpack"),
+                 "tiered": ("fee_distance_tiered", "dfloat_unpack")}
+SERVE_BURST = 512                  # 9b: requests submitted at once
+SERVE_BURST_K = (1, 5, 10)
+SERVE_BURST_EF = (32, 48, 64, 100)
+# 9c: seconds per rate and shares of C; 9e: seconds, share of C, rows a
+# second.  The full durations (15 s a rate, 20 s of churn) took the script
+# past 600 s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), so both are cut
+SERVE_LOAD_FULL, SERVE_SWAP_FULL = 15.0, 20.0
+SERVE_LOAD = dict(seconds=5.0, rates=(0.5, 0.9))
+SERVE_SWAP = dict(seconds=6.0, rate=0.5, append=64, delete=16)
+SERVE_PROFILE_BATCHES = 5                              # 9d: per bucket
+NO_TIMEOUT_MS = 600_000.0          # a deadline no request reaches
+NO_SHED_QUEUE = 1 << 16            # a queue no burst or stall fills
+
+
+def serve_config(storages, **kw):
+    from repro_torch.serve import ServeConfig
+
+    return ServeConfig(ef_buckets=(32, 64, 128), batch_buckets=(1, 4, 16, 32), k_max=10,
+                       expand=4, storages=storages, use_dfloat=True, **kw)
+
+
+def launch_counts(kernels):
+    return {k: fn.launches for k, fn in kernels.items()}
+
+
+def check_serve_kernels(counts, storages, what):
+    """``counts`` must hold every kernel of ``storages``' searches and no
+    other FEE kernel."""
+    want = {k for st in storages for k in SERVE_KERNELS[st]}
+    for k in sorted(want):
+        check(counts[k] > 0, f"{what}: kernel {k} was not launched")
+    others = {k: n for k, n in counts.items() if n and k not in want}
+    check(not others, f"{what}: launched {others}")
+
+
+def resolve_all(futures, what):
+    """Every future's Response; fails on an exception or an unknown status."""
+    out = []
+    for f in futures:
+        e = f.exception(timeout=300)
+        check(e is None, f"{what}: a future resolved with {type(e).__name__}: {e}")
+        r = f.result()
+        check(r.status in ("ok", "timeout", "shed"), f"{what}: status {r.status!r}")
+        out.append(r)
+    return out
+
+
+def load_report(resps, offered_rps, duration_s, slo_ms, wall_s):
+    """The ``serve_load`` line: rates, latency percentiles of ok responses,
+    statuses, degraded count, batch-bucket histogram and goodput."""
+    ok = [r for r in resps if r.ok]
+    pct = lambda xs, p: float(np.percentile(xs, p)) if xs else None
+    buckets = {}
+    for r in ok:
+        buckets[str(r.batch_bucket)] = buckets.get(str(r.batch_bucket), 0) + 1
+    return dict(offered_rps=offered_rps, duration_s=duration_s, submitted=len(resps),
+                achieved_rps=len(ok) / wall_s, wall_s=wall_s, slo_ms=slo_ms,
+                p50_total_ms=pct([r.total_ms for r in ok], 50),
+                p99_total_ms=pct([r.total_ms for r in ok], 99),
+                p50_service_ms=pct([r.service_ms for r in ok], 50),
+                p99_service_ms=pct([r.service_ms for r in ok], 99),
+                status={s: sum(r.status == s for r in resps)
+                        for s in ("ok", "timeout", "shed")},
+                degraded=sum(r.degraded for r in resps), batch_buckets=buckets,
+                goodput_rps=sum(r.good for r in resps) / wall_s)
+
+
+class AlternateStorage:
+    """A ``submit`` front for ``run_load`` that alternates the storage of
+    consecutive requests and records each request's (query row, storage):
+    ``run_load`` sends row ``i % n_queries`` as its ``i``-th request."""
+
+    def __init__(self, srv, n_queries, storages):
+        self.srv, self.n_queries, self.storages = srv, n_queries, storages
+        self.cases = []
+
+    def submit(self, query, **kw):
+        i = len(self.cases)
+        st = self.storages[i % len(self.storages)]
+        self.cases.append((i % self.n_queries, st))
+        return self.srv.submit(query, storage=st, **kw)
+
+
+def serve_load(srv, db, rps, seconds, slo_ms, storages, seed, mutate_fn=None):
+    """Open-loop Poisson traffic (ef 64, k 10, storages alternating); returns
+    the (query row, storage) of each request, the responses and the wall
+    seconds from the first submit to the last response."""
+    from repro_torch.serve import run_load
+
+    front = AlternateStorage(srv, len(db.queries), storages)
+    t0 = time.perf_counter()
+    futs = run_load(front, db.queries, rps=rps, duration_s=seconds, pattern="poisson",
+                    ef=64, k=10, deadline_ms=slo_ms, seed=seed, mutate_fn=mutate_fn,
+                    wait=False)
+    resps = resolve_all(futs, "serve load")
+    return front.cases, resps, time.perf_counter() - t0
+
+
+def count_by_storage(kernels, storages):
+    """Wrap the batcher's ``run_bucketed`` so that the launches of each call
+    add up per storage (the warm-up runs its cells one at a time on the
+    calling thread); returns the tallies and the function that unwraps."""
+    from repro_torch.serve import batcher
+
+    tally = {st: dict.fromkeys(kernels, 0) for st in storages}
+    orig = batcher.run_bucketed
+
+    def counted(snapshot, cfg, queries, ef_bucket, expand, storage, *a, **kw):
+        before = launch_counts(kernels)
+        out = orig(snapshot, cfg, queries, ef_bucket, expand, storage, *a, **kw)
+        for k, n in launch_counts(kernels).items():
+            tally[storage][k] += n - before[k]
+        return out
+
+    batcher.run_bucketed = counted
+    return tally, lambda: setattr(batcher, "run_bucketed", orig)
+
+
+def replay(snapshot, cfg, db, cases, resps):
+    """Every ok response against ``run_bucketed`` of its own query on
+    ``snapshot`` at its (ef served, batch bucket): each such group's queries
+    are replayed for every storage in other batches than served them
+    (reversed, in chunks of the bucket), and one query per (group, storage)
+    alone.  Within a group packed ids must equal f32 ids, tiered ids and
+    distances packed ones.  Returns the replayed batches."""
+    from repro_torch.serve.batcher import run_bucketed
+
+    groups = {}
+    for (row, st), r in zip(cases, resps):
+        if r.ok:
+            groups.setdefault((r.ef_served, r.batch_bucket), []).append((row, st, r))
+    n_batches = 0
+    for (ef, b), members in sorted(groups.items()):
+        rows = sorted({row for row, _, _ in members}, reverse=True)
+        got = {}
+        for st in cfg.storages:
+            for s in range(0, len(rows), b):
+                chunk = rows[s: s + b]
+                ids, dists = run_bucketed(snapshot, cfg, db.queries[chunk], ef, cfg.expand,
+                                          st, bucket=b)[:2]
+                n_batches += 1
+                got.update({(st, row): (ids[i], dists[i]) for i, row in enumerate(chunk)})
+            row = rows[0]
+            ids, dists = run_bucketed(snapshot, cfg, db.queries[[row]], ef, cfg.expand, st,
+                                      bucket=b)[:2]
+            n_batches += 1
+            check(np.array_equal(ids[0], got[st, row][0])
+                  and np.array_equal(dists[0], got[st, row][1]),
+                  f"serve replay: query {row} alone ({st}, ef {ef}, bucket {b}) differs "
+                  "from the same query among others")
+        for row, st, r in members:
+            ids, dists = got[st, row]
+            check(np.array_equal(r.ids, ids[: len(r.ids)])
+                  and np.array_equal(r.dists, dists[: len(r.ids)]),
+                  f"serve replay: request {r.id} ({st}, ef {ef}, bucket {b}) differs from "
+                  "its query replayed")
+        for row in rows:
+            if {"f32", "packed"} <= set(cfg.storages):
+                check(np.array_equal(got["packed", row][0], got["f32", row][0]),
+                      f"serve replay: packed ids differ from f32 (ef {ef}, bucket {b})")
+            if {"packed", "tiered"} <= set(cfg.storages):
+                check(np.array_equal(got["tiered", row][0], got["packed", row][0])
+                      and np.array_equal(got["tiered", row][1], got["packed", row][1]),
+                      f"serve replay: tiered ids and distances differ from packed "
+                      f"(ef {ef}, bucket {b})")
+    return n_batches
+
+
+def profile_buckets(snapshot, cfg, db, dev):
+    """``torch.profiler`` over SERVE_PROFILE_BATCHES batches (ef 64, f32) at
+    batch buckets 1 and 32, through the batcher's ``run_bucketed``: device
+    busy against wall time, the idle share, kernel launches per batch and
+    the port's kernels' time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.batcher import run_bucketed
+
+    out = {}
+    for b in (1, 32):
+        qs = [db.queries[np.arange(i * b, (i + 1) * b) % len(db.queries)]
+              for i in range(SERVE_PROFILE_BATCHES)]
+        run_bucketed(snapshot, cfg, qs[0], 64, cfg.expand, "f32")
+        # wall time unprofiled (the profiler adds host time to every op),
+        # then the same batches profiled for the device's time
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        service = [run_bucketed(snapshot, cfg, q, 64, cfg.expand, "f32")[3] for q in qs]
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for q in qs:
+                run_bucketed(snapshot, cfg, q, 64, cfg.expand, "f32")
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        ms = lambda es: sum(e.self_device_time_total for e in es) / 1e3
+        rep = dict(bucket=b, batches=len(qs), ef=64, storage="f32", wall_ms=wall_ms,
+                   service_ms=[s * 1e3 for s in service])
+        if kernels:
+            busy = ms(kernels)
+            rep.update(device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
+                       launches_per_batch=sum(e.count for e in kernels) / len(qs),
+                       port_kernels_ms=ms(e for e in kernels
+                                          if any(k in e.key for k in PORT_KERNELS)))
+        else:
+            rep["device_busy_ms"] = "the profiler recorded no device time: not measured"
+        log(json.dumps({"serve_profile": rep}))
+        out[b] = rep
+    return out
+
+
+def dead_ids(snapshot, ids):
+    """Tombstone bits of ``ids`` (>= 0) in ``snapshot``."""
+    ids = np.asarray(ids, np.int64)
+    ids = ids[ids >= 0]
+    return ((snapshot.tombstone[ids >> 5] >> (ids & 31).astype(np.uint32)) & 1) == 1
+
+
+def wait_for(cond, what, timeout_s=60.0):
+    t_end = time.monotonic() + timeout_s
+    while not cond():
+        check(time.monotonic() < t_end, f"{what}: not within {timeout_s:.0f} s")
+        time.sleep(0.01)
+
+
+def serve_phase(index, db, dev, kernels):
+    """Phase 9: the serving tier on the card over phase 3's index (9a
+    warm-up, 9b burst replay, 9c load, 9d profile, 9e hot swap under churn,
+    rollback and a delta install against a cold one)."""
+    import copy
+
+    from repro_torch.data.synthetic import recall_at_k
+    from repro_torch.index import DeviceCache
+    from repro_torch.resilience import FaultPlan, FaultSpec, active_plan
+    from repro_torch.serve import Server
+    from repro_torch.serve.batcher import run_bucketed
+    from repro_torch.streaming import MutableIndex
+
+    storages = tuple(SERVE_KERNELS)
+    cfg = serve_config(storages, slo_ms=NO_TIMEOUT_MS, max_queue=NO_SHED_QUEUE)
+
+    # 9a: warm-up of the 36 cells, launches counted per storage
+    tally, unwrap = count_by_storage(kernels, storages)
+    srv = Server(index, cfg)
+    try:
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        srv.start()
+        start_s = time.perf_counter() - t0
+    finally:
+        unwrap()
+    try:
+        for st in storages:
+            check_serve_kernels(tally[st], (st,), f"serve warm-up {st}")
+        check_serve_kernels(launch_counts(kernels), storages, "serve warm-up")
+        info = srv.warmup_info
+        cells = {f"ef{ef} {st} b{b}": dict(first_s=f, steady_s=s)
+                 for (ef, _, st, b), (f, s) in info["cells"].items()}
+        log(json.dumps({"serve_warmup": {
+            "cells": cells, "start_s": start_s, "warmup_s": info["total_s"],
+            "cold_start_ms": srv.metrics.cold_start_ms,
+            "first_response_s": info["first_response_s"], "launches": tally}}))
+        steady = {(ef, st, b): s for (ef, _, st, b), (_, s) in info["cells"].items()}
+
+        # 9b: one burst of mixed k / ef / storage, replayed bit for bit; query
+        # row j goes once to each storage with one (k, ef)
+        cases = [((i // 3) % len(db.queries), storages[i % 3]) for i in range(SERVE_BURST)]
+        knobs = [(SERVE_BURST_K[j % 3], SERVE_BURST_EF[j % 4]) for j, _ in cases]
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        futs = [srv.submit(db.queries[j], k=k, ef=ef, storage=st)
+                for (j, st), (k, ef) in zip(cases, knobs)]
+        resps = resolve_all(futs, "serve burst")
+        burst_s = time.perf_counter() - t0
+        counts = launch_counts(kernels)
+        check_serve_kernels(counts, storages, "serve burst")
+        check(all(r.ok for r in resps), "serve burst: a request was not served: "
+              f"{ {s: sum(r.status == s for r in resps) for s in ('timeout', 'shed')} }")
+        for r, (k, ef) in zip(resps, knobs):
+            check(r.ids.shape == (k,), f"serve burst: request {r.id} has {r.ids.shape} ids")
+            check(r.ef_served == cfg.ef_bucket(ef) or r.degraded,
+                  f"serve burst: request {r.id} served at ef {r.ef_served} for {ef}")
+        t0 = time.perf_counter()
+        n_replay = replay(index, cfg, db, cases, resps)
+        replay_s = time.perf_counter() - t0
+        rec = [(j, r) for (j, st), (k, _), r in zip(cases, knobs, resps)
+               if st == "f32" and k == 10 and r.ef_served == 64]
+        recall = recall_at_k(np.stack([r.ids for _, r in rec]),
+                             db.gt[[j for j, _ in rec]], 10)
+        check(recall >= 0.80, f"serve burst: recall@10 {recall:.4f} < 0.80 at ef 64")
+        buckets = {}
+        for r in resps:
+            buckets[str(r.batch_bucket)] = buckets.get(str(r.batch_bucket), 0) + 1
+        log(json.dumps({"serve_replay": {
+            "requests": len(resps), "burst_s": burst_s, "batch_buckets": buckets,
+            "degraded": sum(r.degraded for r in resps), "replayed_batches": n_replay,
+            "replay_s": replay_s, "bit_identical": True, "recall_at_10_ef64_f32": recall,
+            "recall_queries": len(rec), "launches": counts}}))
+
+        # 9c: Poisson load at shares of C = 32 / (ef 64, f32, bucket 32) steady s
+        cap = 32 / steady[64, "f32", 32]
+        slo_ms = 3e3 * max(steady[64, st, 32] for st in ("f32", "packed"))
+        log(json.dumps({"serve_capacity": {"C_rps": cap, "slo_ms": slo_ms}}))
+        loads = []
+        for share in SERVE_LOAD["rates"]:
+            for fn in kernels.values():
+                fn.launches = 0
+            _, resps, wall_s = serve_load(srv, db, share * cap, SERVE_LOAD["seconds"], slo_ms,
+                                          ("f32", "packed"), seed=int(share * 100))
+            check_serve_kernels(launch_counts(kernels), ("f32", "packed"),
+                                f"serve load {share} C")
+            rep = load_report(resps, share * cap, SERVE_LOAD["seconds"], slo_ms, wall_s)
+            rep["events"] = srv.metrics.summary().get("events", {})
+            log(json.dumps({"serve_load": {"share_of_C": share, **rep}}))
+            loads.append(rep)
+
+        # 9d: where a batch's time goes at buckets 1 and 32
+        profiles = profile_buckets(index, cfg, db, dev)
+    finally:
+        srv.stop()
+
+    # 9e: hot swap under churn, then a failed install, then delta vs cold
+    # the traffic asks for ef 64 only, so the lattice holds that bucket alone
+    swap_cfg = dataclasses.replace(serve_config(("f32", "packed"), slo_ms=NO_TIMEOUT_MS,
+                                                max_queue=NO_SHED_QUEUE, swap_poll_s=0.05),
+                                   ef_buckets=(64,))
+    rng = np.random.default_rng(9)
+    noise = 0.05 * db.vectors.std(axis=0)
+    t0 = time.perf_counter()
+    mi = MutableIndex(index, ef_build=64, sub_batch=64)
+    mutable_s = time.perf_counter() - t0
+
+    def mutate():
+        # under the index's lock, so that the watcher freezes the append and
+        # the delete as one generation
+        with mi._lock:
+            new = db.vectors[rng.integers(0, db.n, SERVE_SWAP["append"])]
+            mi.append(new + (noise * rng.standard_normal(new.shape)).astype(np.float32))
+            mi.delete(rng.choice(mi.alive_ids(), SERVE_SWAP["delete"], replace=False))
+
+    srv = Server(mi, swap_cfg)
+    srv.history = collections.deque()            # keep every generation served
+    installs = []
+    orig_install = srv.installer.install
+
+    def timed_install(snapshot):
+        t = time.perf_counter()
+        stats = orig_install(snapshot)
+        installs.append((snapshot.generation, time.perf_counter() - t,
+                         None if stats is None else list(zip(swap_cfg.storages, stats))))
+        return stats
+
+    srv.installer.install = timed_install
+    try:
+        t0 = time.perf_counter()
+        srv.start()
+        swap_start_s = time.perf_counter() - t0
+        for fn in kernels.values():
+            fn.launches = 0
+        cases, resps, wall_s = serve_load(srv, db, SERVE_SWAP["rate"] * cap,
+                                          SERVE_SWAP["seconds"],
+                                          NO_TIMEOUT_MS, ("f32", "packed"), seed=17,
+                                          mutate_fn=mutate)
+        check_serve_kernels(launch_counts(kernels), ("f32", "packed"), "serve swap")
+        check(all(r.ok for r in resps), "serve swap: requests not served ok: "
+              f"{ {s: sum(r.status == s for r in resps) for s in ('timeout', 'shed')} }")
+        history = dict(srv.history)
+        gens = sorted({r.generation for r in resps})
+        check(len(gens) >= 2, f"serve swap: {len(gens)} generation(s) served, expected >= 2")
+        check(set(gens) <= set(history), "serve swap: a response names an uninstalled "
+              "generation")
+        firsts = {}
+        for (row, st), r in zip(cases, resps):
+            check(not dead_ids(history[r.generation], r.ids).any(),
+                  f"serve swap: generation {r.generation} returned a tombstoned id")
+            firsts.setdefault(r.generation, (row, st, r))
+        t0 = time.perf_counter()
+        for gen, (row, st, r) in firsts.items():
+            snap = copy.copy(history[gen])
+            snap._device, snap._searchers = {}, {}
+            ids, dists = run_bucketed(snap, swap_cfg, db.queries[[row]], r.ef_served,
+                                      swap_cfg.expand, st, bucket=r.batch_bucket)[:2]
+            check(np.array_equal(r.ids, ids[0]) and np.array_equal(r.dists, dists[0]),
+                  f"serve swap: generation {gen}'s first response differs on its snapshot")
+        replay_s = time.perf_counter() - t0
+        stats = [(st, s) for _, _, ss in installs if ss for st, s in ss]
+        deltas = [s for _, s in stats if s.mode == "delta"]
+        check(deltas, "serve swap: no delta install")
+        worst = max(s.reupload_fraction for s in deltas)
+        check(worst < 0.25, f"serve swap: a delta re-uploaded {worst:.3f} of the payload")
+        load = load_report(resps, SERVE_SWAP["rate"] * cap, SERVE_SWAP["seconds"],
+                           NO_TIMEOUT_MS, wall_s)
+        events = srv.metrics.summary().get("events", {})
+
+        # a failing install rolls back; the previous generation keeps serving
+        # (first the server catches up with the load's last mutation)
+        settled = mi.freeze().generation
+        wait_for(lambda: srv.generation == settled, "serve swap: the load's last install")
+        prev_snap = srv.installer.serving
+        prev_gen = prev_snap.generation
+        with active_plan(FaultPlan({"serve.swap.install": FaultSpec("raise", at=(0,))})):
+            mutate()
+            wait_for(lambda: srv.installer.rollbacks == 1, "serve swap rollback")
+        check(srv.generation == prev_gen, "serve swap: the rollback changed the generation")
+        prev = copy.copy(prev_snap)
+        prev._device, prev._searchers = {}, {}
+        rows = list(range(8))
+        futs = [srv.submit(db.queries[j], k=10, ef=64, storage=st)
+                for j in rows for st in ("f32", "packed")]
+        after = resolve_all(futs, "serve after rollback")
+        for (j, st), r in zip([(j, st) for j in rows for st in ("f32", "packed")], after):
+            check(r.ok and r.generation == prev_gen, "serve swap: after the rollback a "
+                  f"request was served by generation {r.generation}, not {prev_gen}")
+            ids, dists = run_bucketed(prev, swap_cfg, db.queries[[j]], r.ef_served,
+                                      swap_cfg.expand, st, bucket=r.batch_bucket)[:2]
+            check(np.array_equal(r.ids, ids[0]) and np.array_equal(r.dists, dists[0]),
+                  "serve swap: a response after the rollback differs from its generation's")
+
+        # one more generation into the serving caches, against a cold install
+        mutate()
+        target = mi.freeze().generation
+        wait_for(lambda: srv.generation == target, "serve swap: the last install")
+    finally:
+        srv.stop()
+    last = srv.installer.serving
+    cold_equal = {}
+    for st, cache in srv.installer.caches.items():
+        bare = copy.copy(last)
+        bare._device, bare._searchers = {}, {}
+        cold = DeviceCache(storage=st, use_dfloat=True, donate=False)
+        cold.install(bare)
+        for name in ("_db", "_adj", "_tomb"):
+            check(torch.equal(getattr(cache, name), getattr(cold, name)),
+                  f"serve swap: the {st} cache's {name} differs from a cold install")
+        cold_equal[st] = True
+    log(json.dumps({"serve_swap": {
+        "mutable_index_s": mutable_s, "start_s": swap_start_s, "replay_s": replay_s,
+        "generations_served": len(gens), "installs": {
+            m: sum(s.mode == m for _, s in stats) for m in ("full", "delta")},
+        "install_ms": [[g, s * 1e3] for g, s, _ in installs],
+        "upload": [dict(storage=st, generation=s.generation, mode=s.mode,
+                        h2d_bytes=s.h2d_bytes,
+                        full_bytes=s.full_bytes, reupload_fraction=s.reupload_fraction,
+                        tail_rows=s.tail_rows, dirty_adj_rows=s.dirty_adj_rows,
+                        dirty_tombstone_words=s.dirty_tombstone_words)
+                   for st, s in stats],
+        "max_delta_reupload_fraction": worst, "rollbacks": srv.installer.rollbacks,
+        "delta_equals_cold": cold_equal, "events": events, "load": load}}))
+    return loads, profiles
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="base vectors")
@@ -1036,6 +1515,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     churn_phase(index, db, dev, kernels, rep["f32"]["recall_at_10"], **churn)
     log(json.dumps({"churn_phase_s": time.perf_counter() - t0}))
+    log(json.dumps({"reduced": {"serve": {"load_s": SERVE_LOAD["seconds"],
+                                          "swap_s": SERVE_SWAP["seconds"]},
+                                "from": {"load_s": SERVE_LOAD_FULL, "swap_s": SERVE_SWAP_FULL},
+                                "why": "with the full durations the script ran past 600 s"}}))
+    t0 = time.perf_counter()
+    serve_phase(index, db, dev, kernels)
+    log(json.dumps({"serve_phase_s": time.perf_counter() - t0}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

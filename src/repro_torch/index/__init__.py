@@ -10,6 +10,7 @@
 from repro_torch.core.fee import FeeParams  # noqa: F401
 from repro_torch.index.backends import BACKENDS  # noqa: F401
 from repro_torch.index.convert import from_arrays  # noqa: F401
+from repro_torch.index.device import DeviceCache, UploadStats  # noqa: F401
 from repro_torch.index.index import Index  # noqa: F401
 from repro_torch.index.types import (  # noqa: F401
     FeeFit, IndexSpec, SearchParams, SearchResult)

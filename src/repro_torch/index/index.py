@@ -145,6 +145,14 @@ class Index:
                                          self.tier_split * self.seg)
         return self._tiers
 
+    def emulated_rows(self, ids: np.ndarray) -> np.ndarray:
+        """Quantized f32 rows for ``ids`` on the host without materializing
+        the full ``db_q`` (bit-identical to ``emulate_db`` of a tensor of the
+        same rows on any device)."""
+        if self._db_q is not None:
+            return self._db_q[ids]
+        return dfl.emulate_db(self.db_rot[ids], self.dfloat_cfg)
+
     # -- device copies --------------------------------------------------------
     def device_db(self, use_dfloat: bool, storage: str,
                   device) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
@@ -184,6 +192,23 @@ class Index:
             words = np.ascontiguousarray(self.tombstone, np.uint32).view(np.int32)
             self._device[key] = torch.from_numpy(words).to(device)
         return self._device[key]
+
+    def seed_device(self, key, arr) -> None:
+        """Pre-populate the device-tensor cache under the keys ``device_db``,
+        ``device_adjacency`` and ``device_tombstone`` read
+        (``("db", storage, use_dfloat, str(device))``, ``("adj",
+        str(device))``, ``("tombstone", str(device))``).  The serving tier's
+        :class:`repro_torch.index.device.DeviceCache` seeds each snapshot
+        with the tensors it spliced, so a generation swap never re-ships the
+        full payload; ``searcher()`` picks them up unchanged."""
+        self._device[key] = arr
+
+    def drop_device(self) -> None:
+        """Release this index's device tensors and its searchers (a retired
+        serving generation, whose tensors the next generation's splice may
+        have overwritten in place)."""
+        self._device.clear()
+        self._searchers.clear()
 
     # -- build --------------------------------------------------------------
     @classmethod

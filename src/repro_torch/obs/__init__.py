@@ -19,8 +19,8 @@ Two halves, one import surface:
 * **Tracing** (``repro_torch.obs.trace``): a bounded-ring span recorder with a
   zero-allocation disabled path.  The serving tier instruments the full
   request lifecycle (``queue_wait -> admission -> bucket_pad -> device_exec
-  -> topk_slice -> resolve``; the port's serving tier is ROADMAP queue A,
-  item 8) plus WAL flushes (``wal.flush``).
+  -> topk_slice -> resolve``, ``repro_torch.serve.batcher``), hot-swap
+  installs (``swap.install``) and WAL flushes (``wal.flush``).
 * **Telemetry** (``repro_torch.obs.registry``): typed counters / gauges /
   histograms (bounded quantile sketches — no unbounded sample lists) with
   JSON-snapshot and text expositions and a periodic file exporter.

@@ -16,8 +16,8 @@ from any thread.  Design constraints, in order:
      free-form attributes; per-request timelines and Chrome-trace exports
      are derived views over the ring.
 
-(A copy of the JAX package's ``repro.obs.trace``.)  The serving stages a
-serving tier instruments end-to-end (the JAX package's ``serve.batcher``)::
+(A copy of the JAX package's ``repro.obs.trace``.)  The serving stages
+instrumented end-to-end (see ``repro_torch.serve.batcher``)::
 
     queue_wait -> admission -> bucket_pad -> device_exec -> topk_slice
                -> resolve

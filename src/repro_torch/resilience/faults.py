@@ -31,10 +31,9 @@ Registered injection points (grep for ``fault_point(`` / ``corrupt(``):
     ckpt.post_swap       replacement in place, old dir not yet removed
     ckpt.read_arrays     arrays as read back by restore (corrupt)
     index.read_arrays    arrays as read back by Index.load (corrupt)
-
-The JAX package's serving points (``serve.loop``, ``serve.batch_exec``,
-``serve.swap.install``) arrive with the port's serving tier (ROADMAP queue
-A, item 8).
+    serve.loop           top of every batcher-loop iteration
+    serve.batch_exec     before a formed batch executes (ids=[request ids])
+    serve.swap.install   before a generation's device upload
 
 Every fire is appended to ``plan.events`` — the fault-event log the chaos
 driver writes as its CI artifact.

@@ -377,3 +377,109 @@ def test_cuda_churn_wal_replay_bit_identical(cuda, tmp_path, tier_split):
     params = SearchParams(ef=48, k=10, storage="f32")
     a, b = mi.search(db.queries, params), m2.search(db.queries, params)
     assert np.array_equal(a.ids, b.ids) and np.array_equal(a.dists, b.dists)
+
+
+@pytest.fixture(scope="module")
+def cuda_unit():
+    """The unit data and a Dfloat index built on the card (every storage)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.index import Index, IndexSpec
+
+    dev = torch.device("cuda")
+    db = make_dataset("unit", device=dev, cache=False)
+    return db, Index.build(db, IndexSpec.for_db(db, m=8, dfloat_recall_target=0.8),
+                           device=dev)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_mixed_traffic_replays_bit_identical(cuda_unit):
+    """Mixed k / ef / storage traffic through the batcher on the card: every
+    response equals its query replayed alone at the batch bucket that served
+    it, ids and distances bit for bit."""
+    from repro_torch.serve import ServeConfig, Server
+    from repro_torch.serve.batcher import run_bucketed
+
+    db, idx = cuda_unit
+    storages = ("f32", "packed", "tiered")
+    cfg = ServeConfig(ef_buckets=(16, 32), batch_buckets=(1, 4, 8), k_max=10,
+                      storages=storages, use_dfloat=True, slo_ms=60_000.0)
+    cases = [(db.queries[i % len(db.queries)], [16, 32, 48][i % 3],
+              [3, 7, 10][i % 3], storages[(i // 3) % 3]) for i in range(72)]
+    srv = Server(idx, cfg).start()
+    try:
+        futs = [srv.submit(q, k=k, ef=ef, storage=st) for q, ef, k, st in cases]
+        resps = [f.result(timeout=120) for f in futs]
+    finally:
+        srv.stop()
+    for (q, ef, k, st), r in zip(cases, resps):
+        assert r.status == "ok"
+        ids, dists, *_ = run_bucketed(idx, cfg, q[None], cfg.ef_bucket(ef),
+                                      cfg.expand, st, bucket=r.batch_bucket)
+        assert np.array_equal(r.ids, ids[0, :k])
+        assert np.array_equal(r.dists, dists[0, :k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("donate", [True, False])
+@pytest.mark.parametrize("storage", ["f32", "packed", "tiered"])
+def test_cuda_delta_splice_equals_cold_install(cuda_unit, storage, donate):
+    """Two delta installs spliced into the card's tensors equal a cold
+    install of the last snapshot (``torch.equal``)."""
+    import copy
+
+    from repro_torch.index import DeviceCache
+    from repro_torch.streaming import MutableIndex
+
+    db, idx = cuda_unit
+    mi = MutableIndex(idx, ef_build=32, sub_batch=64)
+    cache = DeviceCache(storage=storage, use_dfloat=True, donate=donate)
+    cache.install(mi.freeze())
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        mi.append(db.vectors[rng.integers(0, db.n, 48)] + 0.05 * rng.standard_normal(
+            (48, db.dim)).astype(np.float32))
+        mi.delete(rng.choice(mi.alive_ids(), 16, replace=False))
+        snap = mi.freeze()
+        assert cache.install(snap).mode == "delta"
+    bare = copy.copy(snap)
+    bare._device, bare._searchers = {}, {}
+    cold = DeviceCache(storage=storage, use_dfloat=True, donate=False)
+    cold.install(bare)
+    for name in ("_db", "_db_res", "_adj", "_tomb"):
+        a, b = getattr(cache, name), getattr(cold, name)
+        assert (a is None and b is None) or (a.is_cuda and torch.equal(a, b)), name
+
+
+@pytest.mark.cuda
+def test_cuda_swap_rollback_serves_previous_generation(cuda_unit):
+    """A failing install on the card rolls back: the previous generation
+    serves again with its own results, and a retry lands."""
+    from repro_torch.resilience import FaultPlan, FaultSpec, active_plan
+    from repro_torch.serve import ServeConfig
+    from repro_torch.serve.batcher import run_bucketed
+    from repro_torch.serve.swap import GenerationInstaller
+    from repro_torch.streaming import MutableIndex
+
+    db, idx = cuda_unit
+    cfg = ServeConfig(ef_buckets=(32,), batch_buckets=(8,), k_max=10,
+                      storages=("f32", "packed"), use_dfloat=True)
+    mi = MutableIndex(idx, ef_build=32, sub_batch=64)
+    inst = GenerationInstaller(cfg)
+    s0 = mi.freeze()
+    inst.install(s0)
+    q = db.queries[:8]
+    want = {st: run_bucketed(s0, cfg, q, 32, cfg.expand, st)[:2] for st in cfg.storages}
+    mi.append(db.vectors[:64] + 0.01)
+    mi.delete(np.arange(32))
+    s1 = mi.freeze()
+    with active_plan(FaultPlan({"serve.swap.install": FaultSpec("raise", at=(0,))})):
+        assert inst.install(s1) is None
+    assert inst.serving is s0 and inst.rollbacks == 1
+    for st in cfg.storages:
+        ids, dists = run_bucketed(s0, cfg, q, 32, cfg.expand, st)[:2]
+        assert np.array_equal(ids, want[st][0]) and np.array_equal(dists, want[st][1])
+    assert inst.install(s1) is not None and inst.serving is s1
+    ids = run_bucketed(s1, cfg, q, 32, cfg.expand, "f32")[0]
+    assert not np.isin(ids, np.arange(32)).any()

@@ -149,7 +149,9 @@ def test_import_leaves_jax_and_repro_out():
     code = ("import sys; import repro_torch, repro_torch.index, repro_torch.kernels.ops, "
             "repro_torch.kernels._build, repro_torch.utils, repro_torch.ndpsim, "
             "repro_torch.obs, repro_torch.resilience.faults, repro_torch.ft.checkpoint, "
-            "repro_torch.streaming, repro_torch.launch.churn, chip_smoke; "
+            "repro_torch.streaming, repro_torch.launch.churn, repro_torch.serve, "
+            "repro_torch.index.device, repro_torch.launch.serve, repro_torch.launch.chaos, "
+            "chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
     env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin"}
@@ -178,6 +180,13 @@ def test_entry_points_raise_without_a_card(built, tmp_path, monkeypatch):
         MutableIndex.load(path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         churn.main([])
+    # the serving and chaos drivers run on --device, default cuda
+    from repro_torch.launch import chaos, serve
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        chaos.main(["--workdir", str(tmp_path / "chaos")])
     # the data and graph helpers and the FEE device views default to the card too
     for call in (lambda: make_dataset("unit", cache=False),
                  lambda: _generate(DATASETS["unit"]),
