@@ -92,6 +92,23 @@ Phases, each of which fails the run when its check fails:
    ``DeviceCache(donate=False)`` install (``serve_swap``).  The load and
    churn run for 5 and 6 s, cut from 15 and 20 s and printed as
    ``reduced``: at the full durations the script ran past 600 s.
+10. the sharded search on the card (``searcher("sharded", n_shards=C)``,
+   the C shards stacked on the one device, over phase 3's index and all
+   queries, ef 64): (10a) at ``compact=1.0``, C = 4 for f32, packed and
+   tiered and C = 8 for f32, ids, distances and hops bit-identical to the
+   local search at ``compact=1.0``; launch counts reset before each search's
+   timed calls and read after them: its storage's FEE kernel (and
+   ``dfloat_unpack`` for packed and tiered) and no other FEE kernel; one
+   recorded hop's FEE launch (its C x Q lanes over the stacked shards)
+   against its plain version (``sharded_kernel``); one ``sharded`` line a
+   search (QPS and p50 call beside the local search's, FEE launches a hop,
+   partition width Mc, memory, ``run.payload``); (10b) the default
+   ``compact=0.5``, C = 4, f32: recall@10 >= 0.80 and between the local
+   search's at ``compact=0.5`` and at 1.0, +- 0.005 (each shard keeps half
+   of its own lanes, so the shards drop fewer than the local search's one
+   budget: ``sharded_lossy``); (10c) ``overlap=True``, C = 4, f32,
+   ``compact=1.0``: mean id overlap@10 with 10a's result >= 0.99
+   (``sharded_overlap``).
 
 The second-to-last line is the ``kernels`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  ``--n`` / ``--queries`` cut the data for a
@@ -729,18 +746,21 @@ def main_path(args, dev, kernels):
     return index, db, res64, launches, rep
 
 
-def profile_search(index, db, dev, p50_ms, storage="f32"):
+def profile_search(index, db, dev, p50_ms, storage="f32", backend="local", **opts):
     """Where one search batch (every query) over ``storage`` spends the
     device's time: the device-busy milliseconds (the sum of the kernels'
     times on the one stream) against the timed batch's p50 wall time, the
     port's own kernels' share, and the costliest kernels.  Only the
     profiler's device-side rows are summed: its CPU-op rows carry their
-    kernels' time too."""
+    kernels' time too.  ``opts`` (``compact``, ``n_shards``) go to the
+    searcher of ``backend``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.index import SearchParams
 
-    run = index.searcher("local", SearchParams(ef=64, k=10, storage=storage), device=dev)
+    compact = opts.pop("compact", 0.5)
+    run = index.searcher(backend, SearchParams(ef=64, k=10, storage=storage, compact=compact),
+                         device=dev, **opts)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(db.queries)
     kernels = [e for e in prof.key_averages()
@@ -753,6 +773,7 @@ def profile_search(index, db, dev, p50_ms, storage="f32"):
     busy_ms = ms(kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
     log(json.dumps({"profile": {
+        "backend": backend, **opts, "compact": compact,
         "storage": storage, "batch": len(db.queries), "p50_batch_ms": p50_ms,
         "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / p50_ms,
@@ -1440,6 +1461,186 @@ def serve_phase(index, db, dev, kernels):
     return loads, profiles
 
 
+
+# phase 10: the sharded search over phase 3's index (LocalShards: C shards
+# stacked on the card)
+SHARDED_QUERIES = 10_000
+SHARDED_PARITY = (("f32", 4), ("packed", 4), ("tiered", 4), ("f32", 8))
+SHARDED_FEE = {"f32": "fee_distance", "packed": "fee_distance_packed",
+               "tiered": "fee_distance_tiered"}
+FEE_NAMES = tuple(k for k in REPLACES if k != "dfloat_unpack")
+SHARDED_RECORD_CALL = 10           # the FEE call (hop) whose inputs 10a checks
+
+
+def fee_by_storage(args, backend):
+    """(dist, rejected, segs_used) of one recorded ``fee_distance_stale``
+    call's lanes through ``backend``'s dispatcher entry for its storage."""
+    from repro_torch.kernels import ops as kops
+
+    db, ids, q, thr, _admit, alpha, beta, margin, kw = args
+    common = dict(seg=kw["seg"], metric=kw["metric"], backend=backend,
+                  lane_mask=kw["lane_mask"])
+    cfg = kw["dfloat_cfg"]
+    if cfg is None:
+        return kops.fee_distance(db, ids, q, thr, alpha, beta, margin, **common)
+    if isinstance(cfg, tuple):
+        return kops.fee_distance_tiered(db[0], db[1], ids, q, thr, alpha, beta, margin,
+                                        coarse_cfg=cfg[0], resid_cfg=cfg[1], **common)
+    return kops.fee_distance_packed(db, ids, q, thr, alpha, beta, margin,
+                                    dfloat_cfg=cfg, **common)
+
+
+def sharded_kernel_check(args, storage, c):
+    """The FEE kernel against its plain version on one recorded hop of the
+    sharded search (its (C * Q, L) lanes over the stacked shards): live
+    lanes held by ``repro_torch.kernels.check``, dead lanes equal, and both
+    timed with CUDA events."""
+    from repro_torch.core import search as search_mod
+    from repro_torch.kernels.check import compare_fee, near_threshold
+
+    db, ids, q, thr, _admit, alpha, beta, margin, kw = args
+    got = fee_by_storage(args, "auto")
+    want = fee_by_storage(args, "jnp")
+    live = kw["lane_mask"]
+    for a, b in zip(got, want):
+        check(torch.equal(a[~live], b[~live]), f"sharded {storage} C={c}: dead lanes differ")
+    lane_q = torch.arange(ids.shape[0], device=ids.device)[:, None].expand_as(ids)[live]
+    flat = ids[live].long()
+    rows = (db[flat] if kw["dfloat_cfg"] is None
+            else search_mod.decode_rows(db, flat, kw["dfloat_cfg"]))
+    near = near_threshold(rows[:, None, :], q[lane_q], thr[lane_q], alpha, beta, margin,
+                          seg=kw["seg"], metric=kw["metric"])
+    err, flips, n_near = compare_fee([t[live] for t in got], [t[live] for t in want],
+                                     near, f"sharded {storage} C={c}")
+    line = dict(storage=storage, n_shards=c, lanes=list(ids.shape),
+                live_lanes=int(live.sum()), max_abs_err=err, exit_flips=flips,
+                near_threshold=n_near,
+                ms=time_ms(lambda: fee_by_storage(args, "auto")),
+                plain_ms=time_ms(lambda: fee_by_storage(args, "jnp"), reps=3, warmup=1))
+    log(json.dumps({"sharded_kernel": line}))
+
+
+def sharded_phase(index, db, dev, kernels, n_q):
+    """Phase 10: ``searcher("sharded")`` over phase 3's index.  10a: at
+    ``compact=1.0`` each (storage, C) search bit-identical to the local one,
+    launching its storage's FEE kernel (and ``dfloat_unpack`` for packed and
+    tiered) and no other FEE kernel; one recorded hop's FEE launch against
+    its plain version.  10b: lossy compaction (0.5), C = 4, f32: recall@10
+    >= 0.80 and between the local search's at 0.5 and at 1.0, +- 0.005.
+    10c: ``overlap=True``,
+    C = 4, f32, ``compact=1.0``: mean id overlap@10 with 10a's sync result
+    >= 0.99."""
+    from repro_torch.data.synthetic import recall_at_k
+    from repro_torch.index import SearchParams
+    from repro_torch.kernels import ops as kops
+
+    sub = dataclasses.replace(db, queries=db.queries[:n_q], gt=db.gt[:n_q])
+    q = sub.queries
+    n, d = index.n, index.dim
+    local, sync = {}, {}
+    for storage, c in SHARDED_PARITY:
+        params = SearchParams(ef=64, k=10, compact=1.0, storage=storage)
+        if storage not in local:
+            local[storage] = run_search(index, sub, params, dev)
+        t0 = time.perf_counter()
+        run = index.searcher("sharded", params, device=dev, n_shards=c)
+        build_s = time.perf_counter() - t0
+        # the warm-up call records one hop's FEE inputs for the kernel check
+        calls, stale = [], kops.fee_distance_stale
+
+        def recording(db_, ids, q_, exit_thr, admit_thr, alpha, beta, margin, **kw):
+            if len(calls) <= SHARDED_RECORD_CALL:
+                calls.append((db_, ids, q_, exit_thr, admit_thr, alpha, beta, margin, kw))
+            return stale(db_, ids, q_, exit_thr, admit_thr, alpha, beta, margin, **kw)
+
+        kops.fee_distance_stale = recording
+        try:
+            run(q)
+        finally:
+            kops.fee_distance_stale = stale
+        if c == 4:
+            sharded_kernel_check(calls[-1], storage, c)
+        del calls
+        for fn in kernels.values():
+            fn.launches = 0
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            res = run(q)
+            secs.append(time.perf_counter() - t0)
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        fee = SHARDED_FEE[storage]
+        check(counts[fee] > 0, f"sharded {storage} C={c}: {fee} was not launched")
+        others = {k: counts[k] for k in FEE_NAMES if k != fee and counts[k]}
+        check(not others, f"sharded {storage} C={c} launched other FEE kernels: {others}")
+        if storage != "f32":
+            check(counts["dfloat_unpack"] > 0,
+                  f"sharded {storage} C={c}: dfloat_unpack was not launched")
+        want, lsecs = local[storage]
+        check(np.array_equal(res.ids, want.ids) and np.array_equal(res.dists, want.dists),
+              f"sharded {storage} C={c}: ids or distances differ from the local search's "
+              f"({int((res.ids != want.ids).sum())} ids)")
+        check(np.array_equal(res.hops, want.hops), f"sharded {storage} C={c}: hops differ")
+        hop_loops = int(res.hops.max())
+        pay = run.payload
+        words = {"f32": d, "packed": index.db_packed.shape[1],
+                 "tiered": sum(t.shape[1] for t in index.tier_arrays())}[storage]
+        log(json.dumps({"sharded": {
+            "n_shards": c, "storage": storage, "compact": 1.0, "batch": len(q),
+            "qps": len(q) * REPEATS / sum(secs), "p50_call_ms": float(np.median(secs)) * 1e3,
+            "local_qps": len(q) * len(lsecs) / sum(lsecs),
+            "local_p50_call_ms": float(np.median(lsecs)) * 1e3,
+            "searcher_build_s": build_s, "hop_loops": hop_loops,
+            "hops_mean": float(res.hops.mean()),
+            "fee_launches_per_hop": counts[fee] / (REPEATS * hop_loops),
+            "unpack_launches": counts["dfloat_unpack"],
+            "partition_width_mc": pay["local_lanes"] // pay["expand"],
+            "stacked_rows_bytes": c * -(-n // c) * words * 4,
+            "part_adj_bytes": n * c * (pay["local_lanes"] // pay["expand"]) * 4,
+            "search_peak_bytes": torch.cuda.max_memory_allocated() - held,
+            "recall_at_10": recall_at_k(res.ids, sub.gt, 10), "payload": pay}}))
+        sync[(storage, c)] = res
+        del run
+        if (storage, c) == ("f32", 4):
+            profile_search(index, sub, dev, float(np.median(secs)) * 1e3, "f32",
+                           "sharded", compact=1.0, n_shards=4)
+            profile_search(index, sub, dev, float(np.median(local["f32"][1])) * 1e3,
+                           "f32", compact=1.0)
+
+    # 10b: lossy compaction, the default 0.5.  Each shard keeps
+    # max(Mc, 4 Mc / 2) of its own fresh lanes, C times the local search's
+    # one budget of 40 in all, so it drops fewer lanes: its recall lies
+    # between the local search's at 0.5 and at 1.0 (10a's, lossless)
+    params = SearchParams(ef=64, k=10, storage="f32")
+    lossy = index.searcher("sharded", params, device=dev, n_shards=4)(q)
+    base = index.searcher("local", params, device=dev)(q)
+    rec, rec_local = recall_at_k(lossy.ids, sub.gt, 10), recall_at_k(base.ids, sub.gt, 10)
+    rec_lossless = recall_at_k(local["f32"][0].ids, sub.gt, 10)
+    log(json.dumps({"sharded_lossy": {"n_shards": 4, "compact": 0.5, "recall_at_10": rec,
+                                      "local_recall_at_10": rec_local,
+                                      "local_compact1_recall_at_10": rec_lossless,
+                                      "id_overlap_with_local": overlap(lossy.ids, base.ids)}}))
+    check(rec >= 0.80, f"sharded compact=0.5: recall@10 {rec:.4f} < 0.80")
+    check(rec_local - 0.005 <= rec <= rec_lossless + 0.005,
+          f"sharded compact=0.5: recall@10 {rec:.4f} outside [{rec_local:.4f}, "
+          f"{rec_lossless:.4f}] (the local search at compact 0.5 and 1.0) +- 0.005")
+
+    # 10c: the double-buffered pipeline against 10a's sync result
+    params = SearchParams(ef=64, k=10, compact=1.0, storage="f32")
+    run = index.searcher("sharded", params, device=dev, n_shards=4, overlap=True)
+    run(q)
+    t0 = time.perf_counter()
+    ov = run(q)
+    secs = time.perf_counter() - t0
+    frac = overlap(ov.ids, sync[("f32", 4)].ids)
+    log(json.dumps({"sharded_overlap": {"n_shards": 4, "id_overlap_with_sync": frac,
+                                        "qps": len(q) / secs,
+                                        "hops_mean": float(ov.hops.mean()),
+                                        "recall_at_10": recall_at_k(ov.ids, sub.gt, 10)}}))
+    check(frac >= 0.99, f"sharded overlap vs sync id overlap@10 {frac:.4f} < 0.99")
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="base vectors")
@@ -1522,6 +1723,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     serve_phase(index, db, dev, kernels)
     log(json.dumps({"serve_phase_s": time.perf_counter() - t0}))
+    n_sharded = min(SHARDED_QUERIES, len(db.queries))
+    if n_sharded < len(db.queries):
+        log(json.dumps({"reduced": {"sharded_queries": n_sharded,
+                                    "from": len(db.queries)}}))
+    t0 = time.perf_counter()
+    sharded_phase(index, db, dev, kernels, n_sharded)
+    log(json.dumps({"sharded_phase_s": time.perf_counter() - t0}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -118,6 +118,16 @@ def compact_width(m: int, e: int, compact: float = 0.5) -> int:
     return m if e <= 1 else max(m, int(e * m * compact))
 
 
+def local_topk_reduce(cand_ids, cand_d, r: int):
+    """Shard-local top-``r`` of the candidate lanes by distance, before the
+    owner's merge: ``(ids, dists)`` along the last axis, ties to the lower
+    lane (a stable sort, as ``lax.top_k``).  With ``r >= min(ef, lanes)``
+    the truncation cannot change the merged beam: a lane outside its own
+    shard's top-ef already has ef better lanes on that shard alone."""
+    order = torch.argsort(cand_d, dim=-1, stable=True)[..., :r]
+    return torch.gather(cand_ids, -1, order), torch.gather(cand_d, -1, order)
+
+
 def pop_frontier(beam_ids, beam_d, expanded, e: int):
     """Pop each query's ``e`` nearest unexpanded beam entries.
 

@@ -1,12 +1,14 @@
 """Execution backends behind ``Index.searcher(backend=...)``.
 
 ``local`` runs the batched beam search of ``core.search`` on one device.
-``ndpsim`` runs the same search with tracing on, on the same device, and
+``sharded`` runs the query-owner sharded search of
+``distributed.retrieval`` (the paper's DaM, Fig. 12): C shards stacked on
+one device, or one shard per rank of a ``torch.distributed`` group.
+``ndpsim`` runs the local search with tracing on, on the same device, and
 replays its per-hop trace on the host through the DIMM-NDP performance model
 (``repro_torch.ndpsim``), whose projection rides on ``SearchResult.sim``.
 Queries are raw (un-rotated) vectors; the searcher applies the index's sPCA
-transform and the hierarchy descent itself.  The ``sharded`` backend of the
-JAX package is not ported yet (ROADMAP queue A, item 9) and raises.
+transform and the hierarchy descent itself.
 """
 from __future__ import annotations
 
@@ -60,17 +62,15 @@ def _bytes_per_dim(params: SearchParams, dfloat_cfg) -> float:
 
 
 BACKENDS = ("local", "sharded", "ndpsim")
-_LATER = {"sharded": "queue A, item 9"}
 
 
 def make(index, backend: str, params: SearchParams, *, device, **opts):
     if backend == "local":
         return local_searcher(index, params, device=device, **opts)
+    if backend == "sharded":
+        return sharded_searcher(index, params, device=device, **opts)
     if backend == "ndpsim":
         return ndpsim_searcher(index, params, device=device, **opts)
-    if backend in _LATER:
-        raise NotImplementedError(f"the {backend!r} backend is not ported yet: "
-                                  f"see ROADMAP.md {_LATER[backend]}")
     raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
 
 
@@ -97,6 +97,22 @@ def _descent_rows(params: SearchParams, vectors, dfloat_cfg, device):
     return rows
 
 
+def _dfloat_cfg(index, params: SearchParams):
+    """The layout of the storage's rows: the tier pair's, the packed rows',
+    or None for f32 rows."""
+    if params.storage == "tiered":
+        return index.tier_cfgs()
+    return index.dfloat_cfg if params.storage == "packed" else None
+
+
+def _fee_params(index, params: SearchParams, fee, device):
+    """The FEE parameters a search scores with: ``fee`` or the index's fit,
+    on ``device``; None without FEE."""
+    if not params.use_fee:
+        return None
+    return fee if fee is not None else index.fee.params(device)
+
+
 def local_searcher(index, params: SearchParams, *, device, fee=None):
     """Single-device searcher; the DB/adjacency device tensors come from the
     index-level cache, so searchers for different params share one copy.
@@ -104,13 +120,10 @@ def local_searcher(index, params: SearchParams, *, device, fee=None):
     index's resolved ``tier_split``."""
     cfg = params.to_config(index.metric, index.seg)
     vectors = index.device_db(params.use_dfloat, params.storage, device)
-    dfloat_cfg = (index.tier_cfgs() if params.storage == "tiered" else
-                  index.dfloat_cfg if params.storage == "packed" else None)
-    fee_params = None
-    if params.use_fee:
-        fee_params = fee if fee is not None else index.fee.params(device)
+    dfloat_cfg = _dfloat_cfg(index, params)
     searcher = search_mod.make_searcher(
-        vectors, index.device_adjacency(device), cfg, fee=fee_params,
+        vectors, index.device_adjacency(device), cfg,
+        fee=_fee_params(index, params, fee, device),
         trace=params.trace, dfloat_cfg=dfloat_cfg,
         tombstone=index.device_tombstone(device))
     rows = _descent_rows(params, vectors, dfloat_cfg, device)
@@ -124,6 +137,66 @@ def local_searcher(index, params: SearchParams, *, device, fee=None):
         _record_search(res, index.dim, bpd)
         return res
 
+    return run
+
+
+def sharded_searcher(index, params: SearchParams, *, device, mesh=None,
+                     n_shards: int | None = None, group=None,
+                     owner_policy: str = "shuffle", seed: int = 0,
+                     n_bits_log2: int = 23, fee=None, owner=None,
+                     overlap: bool = False):
+    """Query-owner sharded DaM retrieval (paper Fig. 12): rows sharded by
+    owner, neighbour lists pre-partitioned by owner, each query's beam on
+    one shard.  ``n_shards`` shards stacked on ``device``
+    (``distributed.comm.LocalShards``, default 1), or with ``group=`` a
+    ``torch.distributed`` process group (``torch.distributed.group.WORLD``
+    for the default one) one shard per rank (``GroupShards``; every rank
+    calls ``run`` with the same queries and gets every result).
+
+    ``owner`` overrides the row->shard map (a streaming index passes its
+    stable capacity-wide map); ``overlap=True`` selects the double-buffered
+    stale-threshold pipeline; ``n_bits_log2`` is accepted and ignored, as in
+    the reference.  The returned ``run`` carries the per-hop collective
+    payload model as ``run.payload``
+    (``distributed.retrieval.collective_payload``)."""
+    from repro_torch.distributed import GroupShards, LocalShards
+    from repro_torch.distributed import retrieval as rt
+
+    if mesh is not None:
+        raise TypeError("a JAX mesh has no counterpart in the port: pass "
+                        "n_shards= (shards stacked on one device) or group= "
+                        "(one shard per rank of a torch.distributed group)")
+    if params.trace:
+        raise ValueError("sharded backend does not emit traces; use "
+                         "backend='local' (trace=True) or 'ndpsim'")
+    comm = GroupShards(group) if group is not None else LocalShards(n_shards or 1)
+    if n_shards is not None and n_shards != comm.n_shards:
+        raise ValueError(f"n_shards={n_shards} but the process group has "
+                         f"{comm.n_shards} ranks")
+    if owner is None:
+        owner = graph_mod.map_owners(index.n, comm.n_shards, owner_policy,
+                                     seed=seed)
+    dam = graph_mod.build_dam(index.graph.base_adjacency, owner, comm.n_shards)
+    cfg = params.to_config(index.metric, index.seg)
+    vectors = index.device_db(params.use_dfloat, params.storage, device)
+    dfloat_cfg = _dfloat_cfg(index, params)
+    sdb = rt.build_sharded_db(vectors, dam, tombstone=index.tombstone,
+                              shards=comm.shards, device=device)
+    searcher = rt.make_sharded_searcher(
+        comm, cfg, index.n, fee=_fee_params(index, params, fee, device),
+        n_bits_log2=n_bits_log2,
+        dfloat_cfg=dfloat_cfg, tombstone=index.tombstone is not None,
+        overlap=overlap)
+    rows = _descent_rows(params, vectors, dfloat_cfg, device)
+
+    def run(queries) -> SearchResult:
+        qr = torch.from_numpy(index.transform_queries(np.asarray(queries))).to(device)
+        entries = search_mod.descend_entry(rows, index.graph, qr, index.metric)
+        ids, dists, hops = searcher(sdb, qr, entries)
+        return SearchResult(ids=ids.cpu().numpy(), dists=dists.cpu().numpy(),
+                            hops=hops.cpu().numpy(), generation=index.generation)
+
+    run.payload = rt.collective_payload(cfg, dam.max_part_width(), comm.n_shards)
     return run
 
 

@@ -97,6 +97,40 @@ def fee_distance_tiered(xc, xr, ids, q, threshold, alpha, beta, margin, *,
               metric=metric, lane_mask=lane_mask)
 
 
+def fee_distance_stale(db, ids, q, exit_threshold, admit_threshold, alpha,
+                       beta, margin, *, seg: int, metric: str = "l2",
+                       backend: str = "auto", lane_mask=None,
+                       dfloat_cfg=None):
+    """Threshold-carrying FEE for the sharded and double-buffered hop.
+
+    Lanes exit against ``exit_threshold`` ((Q,); in the overlap pipeline the
+    previous hop's beam bound, never below the current one, so it can only
+    admit extra lanes: the exit test is monotone in the threshold), and the
+    survivors are filtered by ``admit_threshold`` ((Q,)) on their full
+    distances.  Returns ``(dist, admit, segs_used)``: ``admit`` is True for
+    lanes that survived both, the *opposite* sense of ``rejected``.
+
+    ``dfloat_cfg`` picks the storage: None scores f32 rows ``db[ids]``
+    (:func:`fee_distance`), one layout packed rows
+    (:func:`fee_distance_packed`), a (coarse, residual) pair of layouts the
+    tier pair ``db`` = (coarse rows, residual rows)
+    (:func:`fee_distance_tiered`)."""
+    common = dict(seg=seg, metric=metric, backend=backend, lane_mask=lane_mask)
+    if dfloat_cfg is None:
+        out = fee_distance(db, ids, q, exit_threshold, alpha, beta, margin,
+                           **common)
+    elif isinstance(dfloat_cfg, tuple):
+        out = fee_distance_tiered(db[0], db[1], ids, q, exit_threshold, alpha,
+                                  beta, margin, coarse_cfg=dfloat_cfg[0],
+                                  resid_cfg=dfloat_cfg[1], **common)
+    else:
+        out = fee_distance_packed(db, ids, q, exit_threshold, alpha, beta,
+                                  margin, dfloat_cfg=dfloat_cfg, **common)
+    dist, rejected, segs_used = out
+    admit_thr = torch.as_tensor(admit_threshold, dtype=dist.dtype, device=dist.device)
+    return dist, ~rejected & (dist < admit_thr.reshape(-1, 1)), segs_used
+
+
 def dfloat_unpack_rows(packed, cfg: dfl.DfloatConfig, *, ids=None,
                        backend: str = "auto"):
     """Packed-row decode: rows ``ids`` ((C,) int64, gathered inside the

@@ -10,12 +10,12 @@ persists the WAL delta log and proves the replay round trip.
 
   PYTHONPATH=src python -m repro_torch.launch.churn --dataset unit --rounds 4 \
       [--append-frac 0.1] [--delete-frac 0.1] [--ef 64] \
-      [--backend local|ndpsim] [--storage f32|packed] \
+      [--backend local|sharded|ndpsim] [--storage f32|packed] \
       [--save PATH] [--seed 0] [--device cuda|cpu]
 
 Everything runs on ``--device`` (default ``cuda``, which raises without a
-card).  ``--backend sharded`` is accepted, as in the JAX package, and
-raises: the port's sharded search is ROADMAP queue A, item 9.
+card); ``--backend sharded`` searches each snapshot through the sharded
+backend with its default single shard.
 """
 import argparse
 import time

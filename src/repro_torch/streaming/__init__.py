@@ -15,9 +15,11 @@
   * a WAL-style delta log (``save_delta`` / ``replay``): format-v3 segments
     persisted via ``repro_torch.ft.checkpoint`` beside the base artifact.
 
-The JAX package's ``ShardedMutableIndex`` (serving a MutableIndex through
-the sharded backend) is not here: it waits for the port's sharded search
-(ROADMAP queue A, item 9).
+``ShardedMutableIndex`` serves a MutableIndex through the query-owner
+sharded backend: slot-stable row->shard ownership (appends route to the
+owning shard's capacity tail) and per-shard tombstone words folded into each
+shard's FEE lane mask.
 """
 from repro_torch.streaming.delta import read_segments  # noqa: F401
 from repro_torch.streaming.mutable import MutableIndex, MutationStats  # noqa: F401
+from repro_torch.streaming.sharded import ShardedMutableIndex  # noqa: F401

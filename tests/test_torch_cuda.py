@@ -19,7 +19,9 @@ with its plain version on every route: whole matrices and row views (pitch
 W and W + 4, base on and off 16 B), rows gathered by ids that repeat or name
 no row, outputs written at a column offset whose runs are not 16 B aligned,
 no rows and one row, the tiered pair written into one matrix, and layouts
-that take its per-field path.
+that take its per-field path.  The sharded search on the card (shards
+stacked on it) must equal the local search bit for bit at ``compact=1.0``,
+and ``GroupShards`` over a one-rank NCCL group must equal ``LocalShards(1)``.
 """
 import numpy as np
 import pytest
@@ -483,3 +485,118 @@ def test_cuda_swap_rollback_serves_previous_generation(cuda_unit):
     assert inst.install(s1) is not None and inst.serving is s1
     ids = run_bucketed(s1, cfg, q, 32, cfg.expand, "f32")[0]
     assert not np.isin(ids, np.arange(32)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["f32", "packed", "tiered"])
+def test_cuda_sharded_matches_local_bit_for_bit(cuda_unit, storage):
+    """The sharded search on the card (1, 4 and 8 shards stacked) gives the
+    local search's ids, distances and hops at ``compact=1.0``, with one
+    launch of its storage's FEE kernel a hop."""
+    from repro_torch.index import SearchParams
+
+    db, idx = cuda_unit
+    fee = {"f32": fee_kernel.fee_distance, "packed": fee_kernel.fee_distance_packed,
+           "tiered": fee_kernel.fee_distance_tiered}[storage]
+    params = SearchParams(ef=48, k=10, compact=1.0, storage=storage)
+    want = idx.searcher("local", params)(db.queries)
+    for c in (1, 4, 8):
+        run = idx.searcher("sharded", params, n_shards=c)
+        before = fee.launches
+        got = run(db.queries)
+        assert fee.launches - before == int(got.hops.max()), c
+        assert np.array_equal(got.ids, want.ids), c
+        assert np.array_equal(got.dists, want.dists), c
+        assert np.array_equal(got.hops, want.hops), c
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_mutable_tombstones(cuda_unit):
+    """A churned ``ShardedMutableIndex`` on the card: its sharded search
+    equals the local search of its snapshot, with no tombstoned id."""
+    from repro_torch.index import SearchParams
+    from repro_torch.streaming import ShardedMutableIndex
+
+    db, idx = cuda_unit
+    sm = ShardedMutableIndex(idx, 4, ef_build=32, sub_batch=64)
+    rng = np.random.default_rng(5)
+    sm.append(db.vectors[rng.integers(0, db.n, 64)] + 0.05 * rng.standard_normal(
+        (64, db.dim)).astype(np.float32))
+    dead = rng.choice(db.n, 150, replace=False)
+    sm.delete(dead)
+    for storage in ("f32", "packed"):
+        params = SearchParams(ef=48, k=10, compact=1.0, storage=storage)
+        want = sm.freeze().searcher("local", params)(db.queries)
+        got = sm.search(db.queries, params)
+        assert np.array_equal(got.ids, want.ids) and np.array_equal(got.dists, want.dists)
+        assert not np.isin(got.ids, dead).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [False, True])
+def test_cuda_group_shards_one_nccl_rank_equals_local_shards(cuda_unit, tmp_path, overlap):
+    """``GroupShards`` over a one-rank NCCL group on the card equals
+    ``LocalShards(1)`` bit for bit (NCCL takes one rank a card, so more
+    ranks need more cards; the gloo test on the CPU runs four)."""
+    import torch.distributed as dist
+
+    from repro_torch.index import SearchParams
+
+    db, idx = cuda_unit
+    params = SearchParams(ef=48, k=10, storage="packed")
+    want = idx.searcher("sharded", params, n_shards=1, overlap=overlap)(db.queries)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}",
+                            rank=0, world_size=1)
+    try:
+        got = idx.searcher("sharded", params, group=dist.group.WORLD,
+                           overlap=overlap)(db.queries)
+    finally:
+        dist.destroy_process_group()
+    assert np.array_equal(got.ids, want.ids) and np.array_equal(got.dists, want.dists)
+
+
+@pytest.mark.cuda
+def test_cuda_group_shards_four_nccl_ranks(cuda_unit, tmp_path):
+    """``GroupShards`` over four NCCL ranks, one card each
+    (``tests/torch_sharded_ranks.py``), equals ``LocalShards(4)`` on one
+    card bit for bit, every rank holding the whole result, over a
+    tombstoned index in sync and overlap mode.  Needs four cards."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.index import Index, SearchParams
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: NCCL takes one card a rank")
+    db, idx = cuda_unit
+    rng = np.random.default_rng(8)
+    dead = rng.choice(db.n, db.n // 20, replace=False)
+    words = np.zeros(-(-db.n // 32), np.uint32)
+    np.bitwise_or.at(words, dead >> 5, np.uint32(1) << (dead & 31).astype(np.uint32))
+    path = idx.save(tmp_path / "plain.naszip")
+    np.save(path / "queries.npy", db.queries)
+    dead_idx = Index.load(path, device="cuda")
+    dead_idx.tombstone = words
+    dead_path = dead_idx.save(tmp_path / "dead.naszip")
+    cases = {"f32-sync": [0, dict(ef=48, k=10), False],
+             "packed-overlap-tomb": [1, dict(ef=48, k=10, storage="packed"), True],
+             "tiered-sync-compact1-tomb": [1, dict(ef=48, k=10, storage="tiered",
+                                                   compact=1.0), False]}
+    out = tmp_path / "out"
+    out.mkdir()
+    here = Path(__file__).parent
+    r = subprocess.run([sys.executable, str(here / "torch_sharded_ranks.py"),
+                        f"{path},{dead_path}", str(out), "4", json.dumps(cases), "nccl"],
+                       capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": str(here.parent / "src")})
+    assert r.returncode == 0, (r.stdout[-1500:], r.stderr[-2500:])
+    for name, (which, fields, overlap) in cases.items():
+        want = (idx, dead_idx)[which].searcher(
+            "sharded", SearchParams(**fields), n_shards=4, overlap=overlap)(db.queries)
+        for rank in range(4):
+            with np.load(out / f"rank{rank}.npz") as z:
+                assert np.array_equal(z[name + "/ids"], want.ids), (name, rank)
+                assert np.array_equal(z[name + "/dists"], want.dists), (name, rank)

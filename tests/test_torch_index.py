@@ -151,7 +151,8 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.obs, repro_torch.resilience.faults, repro_torch.ft.checkpoint, "
             "repro_torch.streaming, repro_torch.launch.churn, repro_torch.serve, "
             "repro_torch.index.device, repro_torch.launch.serve, repro_torch.launch.chaos, "
-            "chip_smoke; "
+            "repro_torch.distributed, repro_torch.distributed.retrieval, "
+            "repro_torch.launch.search, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
     env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin"}

@@ -202,16 +202,18 @@ def test_exclude_dead_matches_jax():
 
 
 def test_unported_paths_raise_naming_the_queue(pair):
-    """The backend not ported yet (sharded) raises naming its queue; tiered
-    storage, the skip-DMA backend and the ndpsim backend build searchers
+    """Every backend of the JAX package is ported: tiered storage, the
+    skip-DMA backend, the ndpsim and the sharded backends build searchers
     (their search is held against the JAX package in
-    ``test_torch_tiered.py``, below and in ``test_torch_ndpsim.py``)."""
+    ``test_torch_tiered.py``, below, in ``test_torch_ndpsim.py`` and in
+    ``test_torch_sharded*.py``), and an unknown backend raises."""
     _, _, port, *_ = pair["l2"]
     port.searcher("local", dataclasses.replace(BASE, storage="tiered"))
     port.searcher("local", dataclasses.replace(BASE, fee_backend="pallas_skip_dma"))
     port.searcher("ndpsim", BASE)
-    with pytest.raises(NotImplementedError, match="queue A"):
-        port.searcher("sharded", BASE)
+    port.searcher("sharded", BASE, n_shards=2)
+    with pytest.raises(ValueError, match="unknown backend"):
+        port.searcher("gpu_cluster", BASE)
 
 
 @pytest.mark.parametrize("storage", ["f32", "packed"])
