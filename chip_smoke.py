@@ -54,7 +54,8 @@ Phases, each of which fails the run when its check fails:
    and the simulator's projection of the paper's DIMM-NDP hardware (not a
    time of this card);
 8. churn on the card (``repro_torch.streaming.MutableIndex`` over phase 3's
-   index, ``ef_build=64``, ``sub_batch=64``): 4 seeded rounds, each appending
+   index, ``ef_build=64``, ``sub_batch=64``): 3 seeded rounds (cut from 4
+   to make room for phase 11 and printed as ``reduced``), each appending
    1,024 rows (copies of random base rows plus Gaussian noise at 5% of the
    per-dimension standard deviation) and deleting 512 random alive rows (half
    the rows of the full traffic, a cut printed as ``reduced``),
@@ -66,7 +67,7 @@ Phases, each of which fails the run when its check fails:
    distances their storage's default ones; recall@10 against the exact
    top-10 over the survivors >= 0.80, and on the last generation no more
    than 2 points below phase 3's; the first generation's snapshot must
-   return its round-1 ids again after round 4; ``save_delta`` then
+   return its round-1 ids again after the last round; ``save_delta`` then
    ``MutableIndex.load`` on the card must give bit-equal arrays and equal
    ids and distances.  One ``churn`` line per round (rates, seconds, QPS,
    recall, ``MutationStats`` and the ndpsim write-burst model).
@@ -870,8 +871,11 @@ def ndpsim_phase(index, db, dev, kernels, n_q=NDPSIM_QUERIES):
 
 # phase 8's traffic: 4 rounds of 2,048 appends and 1,024 deletes, cut to half
 # the rows a round because at full traffic the phase took 283-311 s on an
-# NVIDIA H100 80GB HBM3 at 700 W (PERF.md), over its 3-minute budget
-CHURN_ROUNDS = 4
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md), over its 3-minute budget; and cut
+# to 3 rounds to make room for phase 11, since the script ran 519-564 s
+# through phase 10 on the same card
+CHURN_ROUNDS = 3
+CHURN_ROUNDS_FULL = 4
 CHURN_FULL = dict(append=2048, delete=1024)
 CHURN = dict(append=1024, delete=512)
 CHURN_ISOLATION_QUERIES = 256
@@ -1641,6 +1645,142 @@ def sharded_phase(index, db, dev, kernels, n_q):
                                         "recall_at_10": recall_at_k(ov.ids, sub.gt, 10)}}))
     check(frac >= 0.99, f"sharded overlap vs sync id overlap@10 {frac:.4f} < 0.99")
 
+# phase 11: the LM stack and retrieval-augmented generation
+BF16_FLOPS = 989e12                # H100 SXM dense bfloat16 on the tensor cores
+LM_SMOKE_TOL = 1e-4                # 11a: card against CPU, float32, TF32 off
+LM_F32_TOL = 5e-4                  # 11b: decode against forward, the reference's bound
+LM_BF16_TOL = 3e-2                 # 11b in bfloat16 (PERF.md, stated before the first run)
+LM_ARCH = "llama3.2-1b"
+LM_PARAMS = 1_235_814_400          # ModelConfig.param_count of llama3.2-1b
+RAG_BATCHES = (4, 32)              # the reference example's batch, and a serving batch
+RAG_DOCS, RAG_QUESTION, RAG_GEN = 8, 56, 32
+RAG_RECALL = 0.80
+RAG_PROFILE_STEPS = 8              # decode steps under torch.profiler
+
+
+def lm_profile(api, params, prompt, n_steps=RAG_PROFILE_STEPS):
+    """``torch.profiler`` over a prefill of ``prompt`` and then over
+    ``n_steps`` greedy decode steps: launches and device-busy ms of the
+    prefill and of a step, and a step's costliest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_rows(prof):
+        return [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+
+    tokens = torch.from_numpy(prompt).long().to(params.embed.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pre:
+        logits, cache = api.prefill(params, dict(tokens=tokens),
+                                    prompt.shape[1] + n_steps + 1)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as dec:
+        for _ in range(n_steps):
+            logits, cache = api.decode(params, cache, tok)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+    pre_rows, dec_rows = device_rows(pre), device_rows(dec)
+    if not pre_rows or not dec_rows:
+        return {"profile": "the profiler recorded no device time: not measured"}
+    ms = lambda rows: sum(e.self_device_time_total for e in rows) / 1e3
+    top = sorted(dec_rows, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    return {"prefill_launches": sum(e.count for e in pre_rows),
+            "prefill_busy_ms": ms(pre_rows),
+            "decode_launches_per_step": sum(e.count for e in dec_rows) / n_steps,
+            "decode_busy_ms_per_step": ms(dec_rows) / n_steps,
+            "decode_top": [[e.key[:80], e.self_device_time_total / 1e3 / n_steps,
+                            e.count / n_steps] for e in top]}
+
+
+def lm_phase(index, db, dev, kernels):
+    """Phase 11: (11a) the 10 smoke architectures' forward, prefill and 6
+    decode steps in float32 on the card against the CPU, one set of weights;
+    (11b) llama3.2-1b at full width, decode against forward in float32 and
+    bfloat16, and its parameter count; (11c) RAG: packed top-8 retrieval
+    over phase 3's index feeding the bfloat16 model, a 64-token prompt and
+    32 greedy tokens, at each of ``RAG_BATCHES``."""
+    from repro_torch import configs as C
+    from repro_torch.data.synthetic import recall_at_k
+    from repro_torch.index import SearchParams
+    from repro_torch.launch import rag
+    from repro_torch.models import get_model
+    from repro_torch.models.check import card_against_cpu, decode_against_forward
+    from repro_torch.utils import param_count
+
+    t0 = time.perf_counter()
+    errs = {arch: card_against_cpu(C.get_smoke(arch), dev) for arch in C.ARCHS}
+    worst = max(max(e.values()) for e in errs.values())
+    log(json.dumps({"models": {"errors": errs, "max": worst, "bound": LM_SMOKE_TOL,
+                               "s": time.perf_counter() - t0}}))
+    bad = {a: e for a, e in errs.items() if max(e.values()) >= LM_SMOKE_TOL}
+    check(not bad, f"11a: card against CPU over {LM_SMOKE_TOL}: {bad}")
+
+    t0 = time.perf_counter()
+    cfg = C.get_config(LM_ARCH)
+    api32 = get_model(dataclasses.replace(cfg, dtype=torch.float32), dev)
+    params = api32.init(api32.generator(0))
+    n_params = param_count(params)
+    err32 = decode_against_forward(api32, params)
+    del params
+    torch.cuda.empty_cache()
+    api = get_model(cfg, dev)
+    params = api.init(api.generator(0))         # the float32 draws rounded once
+    err16 = decode_against_forward(api, params)
+    log(json.dumps({"llama_full": {"arch": LM_ARCH, "params": n_params,
+                                   "f32_err": err32, "f32_bound": LM_F32_TOL,
+                                   "bf16_err": err16, "bf16_bound": LM_BF16_TOL,
+                                   "weights_gb": param_count(params) * 2 / 1e9,
+                                   "s": time.perf_counter() - t0}}))
+    check(n_params == cfg.param_count() == LM_PARAMS,
+          f"11b: {n_params} parameters, the config counts {cfg.param_count()}")
+    check(err32 < LM_F32_TOL, f"11b: float32 decode against forward {err32:.3g}")
+    check(err16 < LM_BF16_TOL, f"11b: bfloat16 decode against forward {err16:.3g}")
+
+    run = index.searcher("local", SearchParams(ef=64, k=RAG_DOCS, storage="packed"),
+                         device=dev)
+    weight_bytes = param_count(params) * 2
+    for b in RAG_BATCHES:
+        queries = db.queries[:b]
+        run(queries)                            # warm-up
+        for fn in kernels.values():
+            fn.launches = 0
+        ids, retrieve_ms = rag.retrieve(run, queries)
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        for k in ("fee_distance_packed", "dfloat_unpack"):
+            check(counts[k] > 0, f"11c: the packed retrieval did not launch {k}")
+        again, _ = rag.retrieve(run, queries)
+        check(np.array_equal(ids, again), f"11c: retrieval ids of B={b} not repeatable")
+        recall = recall_at_k(ids, db.gt[:b], RAG_DOCS)
+        check(recall >= RAG_RECALL, f"11c: recall@{RAG_DOCS} {recall:.4f} < {RAG_RECALL}")
+
+        prompt = rag.rag_prompt(ids, cfg.vocab, RAG_QUESTION)
+        rag.generate(api, params, prompt, 2)    # warm-up
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        gen, prefill_ms, decode_ms = rag.generate(api, params, prompt, RAG_GEN)
+        peak = torch.cuda.max_memory_allocated(dev)
+        gen2, prefill2_ms, decode2_ms = rag.generate(api, params, prompt, RAG_GEN)
+        check(np.array_equal(gen, gen2), f"11c: generated ids of B={b} not repeatable")
+        prof = lm_profile(api, params, prompt)
+        r = rag.report(ids, retrieve_ms, gen, prefill_ms, decode_ms)
+        steps = r["decode_steps"]
+        prompt_tokens = b * prompt.shape[1]
+        log(json.dumps({"rag": {
+            **r, "prompt_len": prompt.shape[1], "gen": RAG_GEN, "storage": "packed",
+            "recall_at_8": recall, "retrieval_launches": counts,
+            "repeat": {"prefill_ms": prefill2_ms, "decode_ms": decode2_ms},
+            "decode_step_ms": decode_ms / steps,
+            "decode_step_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+            **prof,
+            "prefill_tflop": 2 * LM_PARAMS * prompt_tokens / 1e12,
+            "prefill_bound_ms": 2 * LM_PARAMS * prompt_tokens / BF16_FLOPS * 1e3,
+            "peak_gb": peak / 1e9, "peak_above_held_gb": (peak - before) / 1e9}}))
+    del params
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="base vectors")
@@ -1713,6 +1853,9 @@ def main(argv=None) -> int:
         log(json.dumps({"reduced": {"churn": churn, "from": CHURN_FULL,
                                     "why": "phase 8 at full traffic took 283-311 s, over "
                                            "its 3-minute budget"}}))
+    log(json.dumps({"reduced": {"churn_rounds": CHURN_ROUNDS, "from": CHURN_ROUNDS_FULL,
+                                "why": "room for phase 11: the script ran 519-564 s "
+                                       "through phase 10"}}))
     t0 = time.perf_counter()
     churn_phase(index, db, dev, kernels, rep["f32"]["recall_at_10"], **churn)
     log(json.dumps({"churn_phase_s": time.perf_counter() - t0}))
@@ -1730,6 +1873,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     sharded_phase(index, db, dev, kernels, n_sharded)
     log(json.dumps({"sharded_phase_s": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    lm_phase(index, db, dev, kernels)
+    log(json.dumps({"lm_phase_s": time.perf_counter() - t0}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

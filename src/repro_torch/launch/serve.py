@@ -14,9 +14,18 @@ package's keys (``args``, ``summary``, ``histogram``).  ``--check-*`` flags
 turn the run into a gate (non-zero exit on violation).
 
 The JAX package's ``--cache-dir`` has no counterpart (the port's kernels'
-builds persist under ``build/repro_torch_kernels/``), and its ``--decode``
-LM smoke path waits for the port of the models (ROADMAP queue A, item 11);
-``main`` is the reference's ``_serve_main``.
+builds persist under ``build/repro_torch_kernels/``).  ``--decode`` runs the
+LM prefill + decode smoke path on ``repro_torch.models`` instead:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --decode \
+      [--arch llama3.2-1b] [--smoke] [--batch 4] [--prompt-len 64] [--gen 32] \
+      [--temperature 0] [--device cuda|cpu]
+
+with weights from the model's seeded initialiser, a seeded prompt (frames for
+whisper, patch embeddings before the tokens for llava), greedy decoding or,
+with ``--temperature``, draws from a seeded ``torch.Generator``.  The cache
+holds the patch positions too (the reference's does not, so its llava
+steps run past the cache); a step past the cache raises.
 """
 import argparse
 import json
@@ -24,6 +33,13 @@ import sys
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if "--decode" in argv:
+        return _decode_main([a for a in argv if a != "--decode"])
+    return _serve_main(argv)
+
+
+def _serve_main(argv):
     ap = argparse.ArgumentParser(description="online ANNS serving driver")
     ap.add_argument("--dataset", default="unit")
     ap.add_argument("--m", type=int, default=8, help="graph degree at build")
@@ -231,6 +247,79 @@ def _gate(args, s) -> int:
     if rc == 0 and (args.check_no_failures or args.check_p99_ms is not None):
         print("checks passed")
     return rc
+
+
+# ---------------------------------------------------------------------------
+# LM prefill + decode smoke
+# ---------------------------------------------------------------------------
+def _decode_main(argv):
+    ap = argparse.ArgumentParser(description="LM prefill + decode smoke")
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs as C
+    from repro_torch import resolve_device
+    from repro_torch.models import get_model
+
+    dev = resolve_device(args.device)
+    cfg = C.get_smoke(args.arch) if args.smoke else C.get_config(args.arch)
+    api = get_model(cfg, dev)
+    params = api.init(api.generator(0))
+    rng = np.random.default_rng(0)
+    t = lambda a, dtype: torch.from_numpy(a).to(dev, dtype)
+
+    kv_len = args.prompt_len + args.gen
+    if cfg.is_encdec:
+        batch = dict(frames=t(rng.standard_normal(
+            (args.batch, args.prompt_len, cfg.d_model)), torch.float32))
+    elif cfg.frontend == "vision":
+        batch = dict(
+            prefix_embeds=t(rng.standard_normal(
+                (args.batch, cfg.frontend_tokens, cfg.d_model)), torch.float32),
+            tokens=t(rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)), torch.long))
+        kv_len += cfg.frontend_tokens
+    else:
+        batch = dict(tokens=t(rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
+                              torch.long))
+
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(params, batch, kv_len)
+    sync()
+    t_prefill = time.perf_counter() - t0
+
+    gen = torch.Generator(dev).manual_seed(1)
+    tok = logits.argmax(-1)
+    out_tokens = [tok]
+    t0 = time.perf_counter()
+    for _ in range(args.gen - 1):
+        logits, cache = api.decode(params, cache, tok)
+        if args.temperature > 0:
+            probs = torch.softmax(logits.float() / args.temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
+        else:
+            tok = logits.argmax(-1)
+        out_tokens.append(tok)
+    toks = torch.stack(out_tokens, 1).cpu().numpy()
+    t_decode = time.perf_counter() - t0
+
+    print(f"prefill: {t_prefill*1e3:.1f} ms for {args.batch}x{args.prompt_len}")
+    print(f"decode:  {t_decode*1e3:.1f} ms for {args.gen-1} steps "
+          f"({(args.gen-1)*args.batch/max(t_decode,1e-9):.0f} tok/s)")
+    print("sample token ids:", toks[0, :12].tolist())
+    return 0
 
 
 if __name__ == "__main__":

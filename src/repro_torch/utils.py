@@ -1,4 +1,4 @@
-"""Small shared utilities: artifact caching and timing."""
+"""Small shared utilities: artifact caching, timing and parameter counts."""
 from __future__ import annotations
 
 import hashlib
@@ -38,3 +38,8 @@ def timer(name: str, sink: dict | None = None):
     dt = time.perf_counter() - t0
     if sink is not None:
         sink[name] = sink.get(name, 0.0) + dt
+
+
+def param_count(module) -> int:
+    """Number of weights of a model (every parameter's element count)."""
+    return sum(p.numel() for p in module.parameters())

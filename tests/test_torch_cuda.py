@@ -22,6 +22,8 @@ no rows and one row, the tiered pair written into one matrix, and layouts
 that take its per-field path.  The sharded search on the card (shards
 stacked on it) must equal the local search bit for bit at ``compact=1.0``,
 and ``GroupShards`` over a one-rank NCCL group must equal ``LocalShards(1)``.
+The LM stack's smoke models must give the CPU's logits on the card (TF32
+off), and `launch/rag.py` and `launch/serve.py --decode` repeatable tokens.
 """
 import numpy as np
 import pytest
@@ -600,3 +602,68 @@ def test_cuda_group_shards_four_nccl_ranks(cuda_unit, tmp_path):
             with np.load(out / f"rank{rank}.npz") as z:
                 assert np.array_equal(z[name + "/ids"], want.ids), (name, rank)
                 assert np.array_equal(z[name + "/dists"], want.dists), (name, rank)
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    """Float32 products in full float32 for the LM checks (restored after)."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["arctic-480b", "qwen2-moe-a2.7b", "llama3.2-1b", "qwen2-72b",
+                                  "qwen3-8b", "yi-9b", "mamba2-780m", "llava-next-34b",
+                                  "whisper-base", "jamba-1.5-large-398b"])
+def test_cuda_models_match_cpu(no_tf32, arch):
+    """One set of smoke weights on the CPU and on the card: forward, prefill
+    and 6 decode steps within 1e-4 of the largest |logit|."""
+    from repro_torch import configs as C
+    from repro_torch.models.check import card_against_cpu
+
+    errs = card_against_cpu(C.get_smoke(arch), no_tf32)
+    assert max(errs.values()) < 1e-4, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "whisper-base"])
+def test_cuda_serve_decode_smoke(no_tf32, arch, capsys):
+    from repro_torch.launch import serve
+
+    argv = ["--decode", "--smoke", "--arch", arch, "--batch", "2", "--prompt-len", "16",
+            "--gen", "8"]
+    assert serve.main(argv) == 0
+    first = capsys.readouterr().out.splitlines()
+    assert first[0].endswith("ms for 2x16") and "for 7 steps" in first[1]
+    assert serve.main(argv) == 0
+    assert capsys.readouterr().out.splitlines()[2] == first[2]
+
+
+@pytest.mark.cuda
+def test_cuda_rag_unit_packed_repeatable(no_tf32):
+    """``launch/rag.py``'s steps on the card over the unit index with packed
+    storage: the packed FEE kernel and the decode kernel launched, ids and
+    greedy tokens equal to a second run's and to the CPU's."""
+    from repro_torch import configs as C
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.index import Index, IndexSpec, SearchParams
+    from repro_torch.launch import rag
+    from repro_torch.models import get_model
+
+    db = make_dataset("unit", device=no_tf32)
+    idx = Index.build(db, IndexSpec.for_db(db, m=8, dfloat_recall_target=0.9), device=no_tf32)
+    run = idx.searcher("local", SearchParams(ef=64, k=rag.TOP_K, storage="packed"))
+    fee_kernel.fee_distance_packed.launches = unpack_kernel.dfloat_unpack.launches = 0
+    ids, _ = rag.retrieve(run, db.queries[:4])
+    assert fee_kernel.fee_distance_packed.launches > 0 and unpack_kernel.dfloat_unpack.launches > 0
+    assert np.array_equal(ids, rag.retrieve(run, db.queries[:4])[0])
+    cfg = C.get_smoke("llama3.2-1b")
+    api, cpu_api = get_model(cfg, no_tf32), get_model(cfg, "cpu")
+    params = cpu_api.init(torch.Generator().manual_seed(0))
+    prompt = rag.rag_prompt(ids, cfg.vocab)
+    want, _, _ = rag.generate(cpu_api, params, prompt)
+    got, _, _ = rag.generate(api, params.to(no_tf32), prompt)
+    assert np.array_equal(got, rag.generate(api, params, prompt)[0])
+    assert np.array_equal(got, want)
