@@ -110,6 +110,24 @@ Phases, each of which fails the run when its check fails:
    budget: ``sharded_lossy``); (10c) ``overlap=True``, C = 4, f32,
    ``compact=1.0``: mean id overlap@10 with 10a's result >= 0.99
    (``sharded_overlap``).
+11. the LM stack (``repro_torch.models``): (11a) the 10 smoke
+   architectures' forward, prefill and 6 decode steps in float32 on the
+   card against the CPU, one set of weights, within 1e-4 (``models``);
+   (11b) llama3.2-1b at full width, decode against forward in float32 and
+   bfloat16 (``llama_full``); (11c) RAG: packed retrieval over phase 3's
+   index feeding the bfloat16 model at batches 4 and 32 (``rag``);
+12. LM training (``repro_torch.training``): (12a) the 10 smoke
+   architectures' loss and gradients in float32 on the card against the
+   CPU within 1e-4, and the weights after one AdamW and one Adafactor step
+   (``train_models``); (12b) llama3.2-1b at full width in bfloat16 (AdamW,
+   lr 3e-4, batch 8 x 128, microbatch 2, remat): 10 steps on one batch
+   lower the loss by more than 0.5, the first loss at microbatch 2 within
+   1e-3 of microbatch 1's, every loss and grad norm finite; step ms,
+   tokens/s, model-FLOP share, the optimizer's ms, peak memory and one
+   profiled step beside their bounds (``train_full``); (12c) the trainer
+   (``launch/train.py --device cuda``) crashed at step 7 and resumed from
+   its step-5 checkpoint ends within 1e-4 of an uninterrupted run
+   (``train_resume``).
 
 The second-to-last line is the ``kernels`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  ``--n`` / ``--queries`` cut the data for a
@@ -1658,16 +1676,18 @@ RAG_RECALL = 0.80
 RAG_PROFILE_STEPS = 8              # decode steps under torch.profiler
 
 
+def device_rows(prof):
+    """The device's rows of a ``torch.profiler`` run's ``key_averages()``."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
 def lm_profile(api, params, prompt, n_steps=RAG_PROFILE_STEPS):
     """``torch.profiler`` over a prefill of ``prompt`` and then over
     ``n_steps`` greedy decode steps: launches and device-busy ms of the
     prefill and of a step, and a step's costliest kernels."""
     from torch.profiler import ProfilerActivity, profile
-
-    def device_rows(prof):
-        return [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0]
 
     tokens = torch.from_numpy(prompt).long().to(params.embed.device)
     torch.cuda.synchronize()
@@ -1781,6 +1801,155 @@ def lm_phase(index, db, dev, kernels):
     torch.cuda.empty_cache()
 
 
+# phase 12: LM training
+TRAIN_SMOKE_TOL = 1e-4             # 12a: loss and gradients, card against CPU (11a's bound)
+TRAIN_STEP_SHARE = 1e-4            # 12a: share of weights outside rtol 2e-4 / atol 2e-5 of
+                                   # the CPU's after one step (the CPU tests' bound)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 128, 3e-4    # the reference trainer's defaults
+TRAIN_MB = 2                       # examples/train_lm.py's --microbatch
+TRAIN_OVERFIT_STEPS, TRAIN_DROP = 10, 0.5          # tests/test_training.py's criterion
+TRAIN_MB_TOL = 1e-3                # 12b: first loss, microbatch 2 against 1 (PERF.md,
+                                   # stated before the first run)
+TRAIN_WARMUP, TRAIN_TIMED = 2, 8
+TRAIN_RESUME_TOL = 1e-4            # 12c: tests/test_ft.py's bound
+
+
+def _train_batch(batch: dict, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev, torch.long if v.dtype.kind == "i" else None)
+            for k, v in batch.items()}
+
+
+def train_phase(dev):
+    """Phase 12: (12a) the 10 smoke architectures' loss and gradients in
+    float32 on the card against the CPU, one set of weights, and the weights
+    after one AdamW and one Adafactor step; (12b) llama3.2-1b at full width
+    in bfloat16 (AdamW, lr 3e-4, batch 8 x 128, microbatch 2, remat): 10
+    steps on one batch lower the loss by more than 0.5, the first loss at
+    microbatch 2 equals microbatch 1's, then 8 timed steps of the
+    step-indexed pipeline after 2 warm-ups, one profiled step, the
+    optimizer alone, peak memory; (12c) the trainer on the card crashed at
+    step 7 and resumed from step 5 ends at the uninterrupted run's loss."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs as C
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import get_model
+    from repro_torch.training import OptConfig, init_state, make_train_step, optim
+    from repro_torch.training import check as train_check
+    from repro_torch.training.tree import regroup, tensors
+    from repro_torch.utils import param_count
+
+    t0 = time.perf_counter()
+    errs = {arch: train_check.card_against_cpu(C.get_smoke(arch), dev) for arch in C.ARCHS}
+    log(json.dumps({"train_models": {"errors": errs, "bound": TRAIN_SMOKE_TOL,
+                                     "step_share_bound": TRAIN_STEP_SHARE,
+                                     "s": time.perf_counter() - t0}}))
+    bad = {a: e for a, e in errs.items()
+           if max(e["loss"], e["grads"]) >= TRAIN_SMOKE_TOL
+           or max(e["adamw"]["share"], e["adafactor"]["share"]) > TRAIN_STEP_SHARE}
+    check(not bad, f"12a: training, card against CPU: {bad}")
+
+    t0 = time.perf_counter()
+    cfg = C.get_config(LM_ARCH)                 # bfloat16, remat, AdamW
+    check(cfg.remat and cfg.optimizer == "adamw" and cfg.microbatch == TRAIN_MB,
+          f"12b: {LM_ARCH}'s config changed: {cfg}")
+    api = get_model(cfg, dev)
+    params = api.init(api.generator(0))
+    n_params = param_count(params)
+    check(n_params == LM_PARAMS, f"12b: {n_params} parameters")
+    pipe = TokenPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=1)
+    batch0 = _train_batch(pipe.batch_at(0), dev)
+    with torch.no_grad():
+        loss_mb1 = float(api.loss(params, batch0)[0])
+    opt = OptConfig(name=cfg.optimizer, lr=TRAIN_LR)
+    state = init_state(api.param_tree(params), opt)
+    step = make_train_step(api.tree_loss, opt, microbatch=TRAIN_MB)
+    losses, gnorms = [], []
+    for _ in range(TRAIN_OVERFIT_STEPS):       # overfit one batch
+        state, m = step(state, batch0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    mb_err = abs(losses[0] - loss_mb1) / abs(loss_mb1)
+
+    for i in range(TRAIN_WARMUP):
+        state, m = step(state, _train_batch(pipe.batch_at(1 + i), dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    step_ms = []
+    for i in range(TRAIN_TIMED):
+        t1 = time.perf_counter()
+        state, m = step(state, _train_batch(pipe.batch_at(1 + TRAIN_WARMUP + i), dev))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, _train_batch(pipe.batch_at(99), dev))
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    top = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    prof_line = ({"step_launches": sum(e.count for e in rows),
+                  "step_busy_ms": sum(e.self_device_time_total for e in rows) / 1e3,
+                  "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top]}
+                 if rows else {"profile": "the profiler recorded no device time: not measured"})
+
+    # the optimizer alone, over float32 gradients (what microbatching hands it)
+    tree = state.params
+    grads = regroup(tree, [torch.zeros(t.shape, dtype=torch.float32, device=dev)
+                           for t in tensors(tree)])
+    opt_bytes = sum(t.numel() * (2 * t.element_size() + 4 + 16) for t in tensors(tree))
+    opt_ms = time_ms(lambda: optim.apply_updates(tree, grads, state.opt_state, opt),
+                     reps=3, warmup=1)
+    del grads
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flop = 8 * LM_PARAMS * tokens               # forward, recomputed forward, backward
+    p50 = float(np.median(step_ms))
+    state_gb = 16 * LM_PARAMS / 1e9             # bf16 weights and grads, f32 acc, mu, nu
+    log(json.dumps({"train_full": {
+        "arch": LM_ARCH, "params": n_params, "dtype": "bfloat16", "optimizer": cfg.optimizer,
+        "lr": TRAIN_LR, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatch": TRAIN_MB,
+        "remat": cfg.remat, "losses": losses, "grad_norms": gnorms,
+        "overfit_drop": losses[0] - losses[TRAIN_OVERFIT_STEPS - 1], "drop_bound": TRAIN_DROP,
+        "loss_mb1": loss_mb1, "loss_mb2": losses[0], "mb_rel_err": mb_err,
+        "mb_bound": TRAIN_MB_TOL, "step_ms": step_ms, "step_ms_p50": p50,
+        "tokens_per_s": tokens / p50 * 1e3, "step_tflop": flop / 1e12,
+        "model_flop_share": flop / (p50 / 1e3 * BF16_FLOPS),
+        "flop_bound_ms": flop / BF16_FLOPS * 1e3, "opt_ms": opt_ms,
+        "opt_bytes_gb": opt_bytes / 1e9, "opt_bound_ms": opt_bytes / HBM_BYTES_PER_S * 1e3,
+        "step_bound_ms": (flop / BF16_FLOPS + opt_bytes / HBM_BYTES_PER_S) * 1e3,
+        "peak_gb": peak / 1e9, "held_before_gb": held / 1e9, "analytic_state_gb": state_gb,
+        **prof_line, "s": time.perf_counter() - t0}}))
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"12b: a loss or grad norm is not finite: {losses} {gnorms}")
+    check(losses[TRAIN_OVERFIT_STEPS - 1] < losses[0] - TRAIN_DROP,
+          f"12b: 10 steps on one batch: loss {losses[0]:.4f} -> "
+          f"{losses[TRAIN_OVERFIT_STEPS - 1]:.4f}, not below by {TRAIN_DROP}")
+    check(mb_err < TRAIN_MB_TOL, f"12b: first loss at microbatch 2 {losses[0]:.6f} vs 1 "
+          f"{loss_mb1:.6f}: {mb_err:.3g} >= {TRAIN_MB_TOL}")
+    del state, params, tree, m
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    work = BUILD / "train_resume"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        res = train_check.crash_and_resume("cuda", work, SRC)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(json.dumps({"train_resume": {**res, "bound": TRAIN_RESUME_TOL,
+                                     "s": time.perf_counter() - t0}}))
+    check(res["rc_full"] == 0 and res["rc_resume"] == 0
+          and res["rc_crash"] == train_check.FAILURE_EXIT,
+          f"12c: trainer exit codes {res}")
+    check(res["restored"], "12c: the resumed run did not restore step 5")
+    check(abs(res["resumed_loss"] - res["final_loss"]) < TRAIN_RESUME_TOL,
+          f"12c: resumed final loss {res['resumed_loss']} vs {res['final_loss']}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="base vectors")
@@ -1876,6 +2045,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lm_phase(index, db, dev, kernels)
     log(json.dumps({"lm_phase_s": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    train_phase(dev)
+    log(json.dumps({"train_phase_s": time.perf_counter() - t0}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

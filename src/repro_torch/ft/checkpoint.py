@@ -252,7 +252,7 @@ def restore(ckpt_dir: str | Path, abstract_tree, device=None):
         if dtypes.get(k) == "bfloat16":
             vals[k] = _bfloat16(a, device)
         elif device is not None:
-            vals[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            vals[k] = torch.from_numpy(np.array(a, order="C")).to(device)   # keeps 0-d
         else:
             vals[k] = a
     return _unflatten(abstract_tree, vals), manifest

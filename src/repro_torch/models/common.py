@@ -1,14 +1,17 @@
 """Shared model primitives: config, norms, RoPE, losses, init helpers.
 
 The JAX package's ``models/common.py`` on torch tensors.  ``ModelConfig``
-keeps every field of the reference, its training-only ones (``remat``,
-``microbatch``, ``optimizer``, ``grad_acc_dtype``) included: they do nothing
-here and stay for parity.  ``dtype`` is a ``torch.dtype``.
+keeps every field of the reference.  Of its training fields, ``remat``
+recomputes each block in the backward pass (:func:`remat`) and the trainer
+(``repro_torch.launch.train``) takes ``optimizer`` and sets ``microbatch``
+from its flag; ``grad_acc_dtype`` stays for parity (the reference's trainer
+does not read it either).  ``dtype`` is a ``torch.dtype``.
 
 A model's weights are a tree of :class:`Params` modules whose attribute
 names are the reference's parameter-dict keys (``p.wq``, ``p.mlp.wi``), so
 the forward functions read as the reference's.  Weights are created with
-``requires_grad=False``: this is the inference half of the LM stack.
+``requires_grad=False``, for inference; training turns their gradients on
+(``requires_grad_(True)``, which ``training.init_state`` calls).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,8 +67,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # training memory policy (kept for parity; unused by inference)
-    remat: bool = True
+    # training memory policy
+    remat: bool = True                   # recompute each block in the backward
     microbatch: int = 0                  # 0 -> no accumulation
     optimizer: str = "adamw"             # "adamw" | "adafactor"
     grad_acc_dtype: str = "f32"          # "bf16" for the 400B-class archs
@@ -146,6 +150,15 @@ class Params(nn.Module):
                 self.add_module(name, nn.ModuleList(v))
             else:
                 self.register_parameter(name, nn.Parameter(v, requires_grad=False))
+
+
+def remat(fn, cfg: ModelConfig, *args):
+    """``fn(*args)``; when ``cfg.remat`` and gradients are being recorded, its
+    activations are not kept but recomputed in the backward pass (the
+    reference's ``jax.checkpoint`` with nothing saveable)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def rms_norm(x, w, eps=1e-5):

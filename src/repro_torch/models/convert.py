@@ -8,6 +8,15 @@ holds one block a layer (layer ``g * period + i`` is ``pos{i}[g]``).
 Trees arrive as nested dicts of numpy arrays; bfloat16 comes as an
 ``ml_dtypes`` array or as its ``uint16`` bit view.  Nothing here imports
 JAX: a caller hands over ``jax.device_get(tree)``.
+
+Training works on the reference's layout directly: :func:`param_tree` views
+the port's weights as the reference's tree (each stacked leaf a
+``training.tree.Stacked`` group of the per-layer parameters), so the
+optimizer's moments and the error feedback are arrays of the reference's
+shapes, and :func:`train_state_tree` / :func:`load_train_state` carry a
+whole ``TrainState`` in the keys of the reference's checkpoint
+(``.params/...``, ``.opt_state/...``, ``.step``, ``.error_fb/...`` when
+set) both ways.
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ from repro_torch import resolve_device
 from repro_torch.ft.checkpoint import _bfloat16
 from repro_torch.models.common import ModelConfig, Params
 from repro_torch.models.transformer import layer_specs
+from repro_torch.training.tree import Stacked, leaves, parts, rebuild
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -110,3 +120,89 @@ def cache_to_numpy(cfg: ModelConfig, cache: dict) -> dict:
                                  for k in layers[i]}
                      for i in range(cfg.period)}
     return out
+
+
+class ParamTree(dict):
+    """The port's weights in the reference's tree layout: a dict whose leaves
+    are the module's own parameters, a stacked leaf of the reference a
+    ``Stacked`` group of per-layer parameters; ``module`` is the ``Params``
+    the model's functions take."""
+
+    def __init__(self, items: dict, module: Params):
+        super().__init__(items)
+        self.module = module
+
+
+def _param_dict(module) -> dict:
+    out = dict(module.named_parameters(recurse=False))
+    out.update({k: _param_dict(m) for k, m in module.named_children()})
+    return out
+
+
+def _group(trees: list[dict]) -> dict:
+    return {k: _group([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+            else Stacked(t[k] for t in trees) for k in trees[0]}
+
+
+def param_tree(cfg: ModelConfig, params: Params) -> ParamTree:
+    """``params`` as the reference's parameter tree, over the same tensors."""
+    tree = dict(params.named_parameters(recurse=False))
+    if cfg.is_encdec:
+        for k in ("enc_blocks", "dec_blocks"):
+            tree[k] = _group([_param_dict(b) for b in getattr(params, k)])
+    else:
+        tree["blocks"] = {f"pos{i}": _group([_param_dict(params.blocks[g * cfg.period + i])
+                                             for g in range(cfg.n_groups)])
+                          for i in range(cfg.period)}
+    return ParamTree(tree, params)
+
+
+def _host(tree, abstract: bool):
+    """A tree's leaves as host tensors of the reference's shapes (a
+    ``Stacked`` group stacked), or shapes only on the meta device."""
+    def one(leaf):
+        if abstract:
+            return torch.empty(tuple(leaf.shape), dtype=_dtype(leaf), device="meta")
+        if isinstance(leaf, Stacked):
+            return torch.stack([t.detach().cpu() for t in leaf])
+        return leaf.detach().cpu().clone()
+    return rebuild(tree, [one(leaf) for leaf in leaves(tree)])
+
+
+def _dtype(leaf):
+    return (leaf[0] if isinstance(leaf, Stacked) else leaf).dtype
+
+
+def train_state_tree(state, abstract: bool = False) -> dict:
+    """A ``training.TrainState`` in the keys the reference's checkpoint gives
+    its ``TrainState``, as host tensors (``repro_torch.ft.checkpoint.save``
+    writes them, bfloat16 included), or, with ``abstract``, as shapes on the
+    meta device (the structure ``checkpoint.restore`` takes)."""
+    out = {".params": _host(state.params, abstract),
+           ".opt_state": _host(state.opt_state, abstract),
+           ".step": _host(state.step, abstract)}
+    if state.error_fb is not None:
+        out[".error_fb"] = _host(state.error_fb, abstract)
+    return out
+
+
+@torch.no_grad()
+def load_train_state(state, tree: dict):
+    """Copy a checkpoint's tree (the keys of :func:`train_state_tree`, numpy
+    arrays or tensors) into ``state``'s tensors, in place; returns
+    ``state``."""
+    live = {".params": state.params, ".opt_state": state.opt_state, ".step": state.step}
+    if state.error_fb is not None:
+        live[".error_fb"] = state.error_fb
+    if sorted(live) != sorted(tree):
+        raise ValueError(f"train state keys {sorted(tree)} != {sorted(live)}")
+    dst, src = leaves(live), leaves(tree)
+    if len(dst) != len(src):
+        raise ValueError(f"{len(src)} arrays for a train state of {len(dst)}")
+    for leaf, x in zip(dst, src):
+        x = x if isinstance(x, torch.Tensor) else _tensor(x, "cpu")
+        if tuple(x.shape) != tuple(leaf.shape):
+            raise ValueError(f"shape {tuple(x.shape)} for a leaf of {tuple(leaf.shape)}")
+        for t, part in zip(parts(leaf, leaf), parts(leaf, x)):
+            t.copy_(part)
+    return state

@@ -24,7 +24,9 @@ def _segsum_decay(log_a):
     cs = torch.cumsum(log_a, dim=-1)
     diff = cs[..., :, None] - cs[..., None, :]                   # sum over (s, t]
     mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=log_a.device))
-    return torch.where(mask, torch.exp(diff), 0.0)
+    # masked before the exp: the upper triangle's exp can overflow, and its
+    # inf would turn the where's zero gradient into a NaN
+    return torch.exp(torch.where(mask, diff, -torch.inf))
 
 
 def ssd_chunked(x, dt, a_log, b, c, chunk: int):

@@ -7,6 +7,7 @@ what the launchers and tests need, on one device:
     prefill(params, batch, kv_len)           -> (logits_last, cache)
     decode(params, cache, tokens)            -> (logits, cache)
     init_cache(batch, kv_len)
+    param_tree(params) / tree_loss(tree, batch)   the training functions' view
 
 Prefill and decode run without autograd.  The decoder's prefill computes the
 cache and the last position's logits in one pass over the prompt, where the
@@ -22,6 +23,7 @@ from typing import Callable
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models import convert
 from repro_torch.models import transformer as tr
 from repro_torch.models import whisper as wh
 from repro_torch.models.common import ModelConfig
@@ -44,6 +46,16 @@ class ModelAPI:
     def generator(self, seed: int = 0) -> torch.Generator:
         """A generator on this API's device, seeded."""
         return _gen(self.device, seed)
+
+    def param_tree(self, params) -> convert.ParamTree:
+        """``params`` in the reference's tree layout, the tree the training
+        functions take (``convert.param_tree``)."""
+        return convert.param_tree(self.cfg, params)
+
+    def tree_loss(self, tree: convert.ParamTree, batch):
+        """``loss`` over a :meth:`param_tree`'s module: the train step's
+        loss function."""
+        return self.loss(tree.module, batch)
 
 
 def tr_prefill_cache(params, batch, cache, cfg: ModelConfig):

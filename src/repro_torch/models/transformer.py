@@ -23,11 +23,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import NEG, chunked_attention
 from repro_torch.models.common import (BlockSpec, ModelConfig, Params, cross_entropy,
-                                       ones, rms_norm, rope, uinit, zeros)
+                                       ones, remat, rms_norm, rope, uinit, zeros)
 
 
 # ---------------------------------------------------------------------------
@@ -178,10 +179,11 @@ def block_forward(x, p, spec: BlockSpec, cfg: ModelConfig, positions):
 
 
 def backbone(params, x, cfg: ModelConfig, positions):
-    """Every layer in turn; returns the hidden states and the summed aux."""
+    """Every layer in turn (each recomputed in the backward pass under
+    ``cfg.remat``); returns the hidden states and the summed aux."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, spec in zip(params.blocks, layer_specs(cfg)):
-        x, a = block_forward(x, p, spec, cfg, positions)
+        x, a = remat(block_forward, cfg, x, p, spec, cfg, positions)
         aux = aux + a
     return x, aux
 
@@ -221,7 +223,11 @@ def lm_loss(params, batch, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, batch: int, kv_len: int, dtype=None, device="cpu"):
+def init_cache(cfg: ModelConfig, batch: int, kv_len: int, dtype=None, device="cuda"):
+    """A zeroed decode cache on ``device`` (default ``cuda``, which raises
+    without a card; "meta" gives shapes only)."""
+    if torch.device(device).type != "meta":
+        device = resolve_device(device)
     dtype = dtype or cfg.dtype
     dh, k = cfg.head_dim, cfg.n_kv_heads
     layers = []

@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import chunked_attention
-from repro_torch.models.common import ModelConfig, Params, cross_entropy, ones, rms_norm, uinit
+from repro_torch.models.common import (ModelConfig, Params, cross_entropy, ones, remat,
+                                       rms_norm, uinit)
 from repro_torch.models.transformer import (attn_decode, attn_forward, check_room, init_attn,
                                             init_dense_mlp)
 
@@ -70,13 +71,27 @@ def _xattn(x, p, memory, cfg: ModelConfig):
     return o.reshape(b, t, h * dh) @ p.wo
 
 
+def _enc_block(x, p, cfg: ModelConfig, positions):
+    h = rms_norm(x, p.norm1, cfg.norm_eps)
+    x = x + attn_forward(h, p.attn, cfg, positions, causal=False)
+    return _mlp(x, p, cfg)
+
+
+def _dec_block(x, p, memory, cfg: ModelConfig, positions):
+    h = rms_norm(x, p.norm1, cfg.norm_eps)
+    x = x + attn_forward(h, p.attn, cfg, positions, causal=True)
+    h = rms_norm(x, p.norm_x, cfg.norm_eps)
+    x = x + _xattn(h, p.xattn, memory, cfg)
+    return _mlp(x, p, cfg)
+
+
 def encode(params, frames, cfg: ModelConfig):
+    """The encoder over the frames; each block recomputed in the backward
+    pass under ``cfg.remat``."""
     positions = torch.arange(frames.shape[1], dtype=torch.int32, device=frames.device)[None]
     x = frames.to(cfg.dtype)
     for p in params.enc_blocks:
-        h = rms_norm(x, p.norm1, cfg.norm_eps)
-        x = x + attn_forward(h, p.attn, cfg, positions, causal=False)
-        x = _mlp(x, p, cfg)
+        x = remat(_enc_block, cfg, x, p, cfg, positions)
     return rms_norm(x, params.enc_norm, cfg.norm_eps)
 
 
@@ -85,11 +100,7 @@ def encdec_forward(params, frames, tokens, cfg: ModelConfig):
     x = params.embed[tokens]
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
     for p in params.dec_blocks:
-        h = rms_norm(x, p.norm1, cfg.norm_eps)
-        x = x + attn_forward(h, p.attn, cfg, positions, causal=True)
-        h = rms_norm(x, p.norm_x, cfg.norm_eps)
-        x = x + _xattn(h, p.xattn, memory, cfg)
-        x = _mlp(x, p, cfg)
+        x = remat(_dec_block, cfg, x, p, memory, cfg, positions)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x @ params.head
 

@@ -23,7 +23,9 @@ that take its per-field path.  The sharded search on the card (shards
 stacked on it) must equal the local search bit for bit at ``compact=1.0``,
 and ``GroupShards`` over a one-rank NCCL group must equal ``LocalShards(1)``.
 The LM stack's smoke models must give the CPU's logits on the card (TF32
-off), and `launch/rag.py` and `launch/serve.py --decode` repeatable tokens.
+off), and `launch/rag.py` and `launch/serve.py --decode` repeatable tokens;
+their loss and gradients the CPU's, an AdamW step the CPU's weights, and the
+trainer on the card must resume from a crash to the uninterrupted run's loss.
 """
 import numpy as np
 import pytest
@@ -667,3 +669,40 @@ def test_cuda_rag_unit_packed_repeatable(no_tf32):
     got, _, _ = rag.generate(api, params.to(no_tf32), prompt)
     assert np.array_equal(got, rag.generate(api, params, prompt)[0])
     assert np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "jamba-1.5-large-398b"])
+def test_cuda_train_grads_match_cpu(no_tf32, arch):
+    """One set of smoke weights on the CPU and on the card: the loss and
+    every gradient leaf within 1e-4 of the largest |value| (phase 12a)."""
+    from repro_torch import configs as C
+    from repro_torch.training.check import card_against_cpu
+
+    errs = card_against_cpu(C.get_smoke(arch), no_tf32, optimizers=())
+    assert errs["loss"] < 1e-4 and errs["grads"] < 1e-4, errs
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_step_matches_cpu(no_tf32):
+    """One AdamW step from the same gradients on the card and on the CPU: at
+    most 1e-4 of the weights outside rtol 2e-4 / atol 2e-5."""
+    from repro_torch import configs as C
+    from repro_torch.training.check import card_against_cpu
+
+    errs = card_against_cpu(C.get_smoke("llama3.2-1b"), no_tf32, optimizers=("adamw",))
+    assert errs["adamw"]["share"] <= 1e-4, errs
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_crash_and_resume(no_tf32, tmp_path):
+    """``launch.train --device cuda``: a crash at step 7 exits 17, the resume
+    restores step 5 and ends within 1e-4 of the uninterrupted run."""
+    from pathlib import Path
+
+    from repro_torch.training.check import FAILURE_EXIT, crash_and_resume
+
+    res = crash_and_resume("cuda", tmp_path, Path(__file__).parent.parent / "src")
+    assert res["rc_full"] == 0 and res["rc_resume"] == 0, res
+    assert res["rc_crash"] == FAILURE_EXIT and res["restored"], res
+    assert abs(res["resumed_loss"] - res["final_loss"]) < 1e-4, res

@@ -488,7 +488,7 @@ def test_tr_prefill_cache_matches_jax():
     ref = jfill(jp, dict(tokens=toks), jtr.init_cache(jcfg, 2, 12), jcfg)
     with torch.no_grad():
         cache = tr_prefill_cache(params, dict(tokens=t(toks)),
-                                 tr.init_cache(cfg, 2, 12), cfg)
+                                 tr.init_cache(cfg, 2, 12, device="cpu"), cfg)
     assert cache["pos"] == int(ref["pos"]) == 8
     errs = tree_rel(cache_to_numpy(cfg, cache), jax.device_get(ref))
     assert max(errs.values()) < TOL, errs
