@@ -45,7 +45,8 @@ Phases, each of which fails the run when its check fails:
    by the kernel (``unpack_gather_ms``);
 6. ``torch.profiler`` over one f32 and one packed search batch: device-busy
    time against the batch's wall time, and the costliest kernels;
-7. the ndpsim backend (``searcher("ndpsim")``) over the first 256 queries
+7. the ndpsim backend (``searcher("ndpsim")``) over the first 128 queries
+   (cut from 256 for phase 13's time, printed as ``reduced``)
    for ``storage="packed"`` and ``"tiered"``: its traced search must launch
    that storage's FEE kernel and ``dfloat_unpack`` and no other FEE kernel,
    reach recall@10 0.80, and give the plain path's trace (``nbrs``,
@@ -54,8 +55,8 @@ Phases, each of which fails the run when its check fails:
    and the simulator's projection of the paper's DIMM-NDP hardware (not a
    time of this card);
 8. churn on the card (``repro_torch.streaming.MutableIndex`` over phase 3's
-   index, ``ef_build=64``, ``sub_batch=64``): 3 seeded rounds (cut from 4
-   to make room for phase 11 and printed as ``reduced``), each appending
+   index, ``ef_build=64``, ``sub_batch=64``): 2 seeded rounds (cut from 4
+   to make room for phases 11 and 13 and printed as ``reduced``), each appending
    1,024 rows (copies of random base rows plus Gaussian noise at 5% of the
    per-dimension standard deviation) and deleting 512 random alive rows (half
    the rows of the full traffic, a cut printed as ``reduced``),
@@ -128,6 +129,23 @@ Phases, each of which fails the run when its check fails:
    (``launch/train.py --device cuda``) crashed at step 7 and resumed from
    its step-5 checkpoint ends within 1e-4 of an uninterrupted run
    (``train_resume``).
+13. LM training on a (data, model) mesh of 2 ranks sharing the card over
+   gloo (``repro_torch.training.mesh_check.chip_rank``, one spawn a layout,
+   at (2, 1) and (1, 2)): (13a) the 10 smoke architectures in float32, TF32
+   off: the loss and every gathered gradient leaf of one differentiation
+   within 1e-4 of the one-process ones, and the weights after one AdamW
+   and one Adafactor step within 12a's bound (``mesh_models``); (13b)
+   llama3.2-1b at full width in bfloat16 (AdamW, lr 3e-4, batch 8 x 128,
+   microbatch 2, remat): 1 warm-up and 3 steps of the step-indexed
+   pipeline, each loss within 1e-2 relative of the one-process trainer's
+   from the same seeded weights on the same batches (``mesh_reference``,
+   run first), with step ms, the collectives' ms and bytes by kind, tokens/s
+   and each rank's peak memory beside the state the sharding rules give it
+   (``mesh_full``), and none of the six kernels launched; (13c) the smoke
+   llama through ``launch/train.py --devices 2 --backend gloo`` crashed at
+   step 7 and resumed ends within 1e-4 of the uninterrupted run, and the
+   one-process trainer resumed from its step-5 checkpoint takes step 5 at
+   the mesh run's loss (``mesh_resume``).
 
 The second-to-last line is the ``kernels`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  ``--n`` / ``--queries`` cut the data for a
@@ -154,7 +172,6 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 BUILD = ROOT / "build"
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS = 67e12                  # H100 SXM float32 outside the tensor cores
 REPEATS = 3                        # timed search calls, each over every query
 SLEEP_CYCLES = 100_000_000         # ~50 ms at the H100's clocks: time to queue a timed run
@@ -190,6 +207,15 @@ SEARCHES = (
     ("packed skip-DMA", dict(storage="packed", fee_backend="pallas_skip_dma"),
      ("fee_distance_packed_skipdma", "dfloat_unpack"), ("fee_distance_packed",)),
 )
+
+
+def h100(name: str) -> float:
+    """A datasheet rate of the H100 SXM at 700 W (``repro_torch.launch.mesh``:
+    ``HBM_BW`` B/s of device memory, ``PEAK_FLOPS_BF16`` dense bfloat16
+    operations/s on the tensor cores)."""
+    from repro_torch.launch import mesh
+
+    return getattr(mesh, name)
 
 
 def log(*a):
@@ -398,7 +424,7 @@ def time_cold_ms(fn, reps=20, flush_bytes=256 << 20):
 
 
 def bound(n_bytes, n_ops):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = n_bytes / h100("HBM_BW") * 1e3
     t_ops = n_ops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -801,7 +827,10 @@ def profile_search(index, db, dev, p50_ms, storage="f32", backend="local", **opt
         "top": [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in top]}}))
 
 
-NDPSIM_QUERIES = 256           # the slice of the plain-path phase
+# cut from 256 to make room for phase 13 (the script would run ~820 s with
+# phase 13 at the earlier depths; PERF.md)
+NDPSIM_QUERIES = 128           # the slice of the plain-path phase
+NDPSIM_QUERIES_FULL = 256
 NDPSIM_CUT_QUERIES = 64        # when one replay takes longer than NDPSIM_REPLAY_S
 NDPSIM_REPLAY_S = 60.0
 NDPSIM_FEE = {"packed": "fee_distance_packed", "tiered": "fee_distance_tiered"}
@@ -891,8 +920,8 @@ def ndpsim_phase(index, db, dev, kernels, n_q=NDPSIM_QUERIES):
 # the rows a round because at full traffic the phase took 283-311 s on an
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md), over its 3-minute budget; and cut
 # to 3 rounds to make room for phase 11, since the script ran 519-564 s
-# through phase 10 on the same card
-CHURN_ROUNDS = 3
+# through phase 10 on the same card, then to 2 rounds to make room for phase 13
+CHURN_ROUNDS = 2
 CHURN_ROUNDS_FULL = 4
 CHURN_FULL = dict(append=2048, delete=1024)
 CHURN = dict(append=1024, delete=512)
@@ -1664,7 +1693,6 @@ def sharded_phase(index, db, dev, kernels, n_q):
     check(frac >= 0.99, f"sharded overlap vs sync id overlap@10 {frac:.4f} < 0.99")
 
 # phase 11: the LM stack and retrieval-augmented generation
-BF16_FLOPS = 989e12                # H100 SXM dense bfloat16 on the tensor cores
 LM_SMOKE_TOL = 1e-4                # 11a: card against CPU, float32, TF32 off
 LM_F32_TOL = 5e-4                  # 11b: decode against forward, the reference's bound
 LM_BF16_TOL = 3e-2                 # 11b in bfloat16 (PERF.md, stated before the first run)
@@ -1792,10 +1820,10 @@ def lm_phase(index, db, dev, kernels):
             "recall_at_8": recall, "retrieval_launches": counts,
             "repeat": {"prefill_ms": prefill2_ms, "decode_ms": decode2_ms},
             "decode_step_ms": decode_ms / steps,
-            "decode_step_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+            "decode_step_bound_ms": weight_bytes / h100("HBM_BW") * 1e3,
             **prof,
             "prefill_tflop": 2 * LM_PARAMS * prompt_tokens / 1e12,
-            "prefill_bound_ms": 2 * LM_PARAMS * prompt_tokens / BF16_FLOPS * 1e3,
+            "prefill_bound_ms": 2 * LM_PARAMS * prompt_tokens / h100("PEAK_FLOPS_BF16") * 1e3,
             "peak_gb": peak / 1e9, "peak_above_held_gb": (peak - before) / 1e9}}))
     del params
     torch.cuda.empty_cache()
@@ -1917,10 +1945,10 @@ def train_phase(dev):
         "loss_mb1": loss_mb1, "loss_mb2": losses[0], "mb_rel_err": mb_err,
         "mb_bound": TRAIN_MB_TOL, "step_ms": step_ms, "step_ms_p50": p50,
         "tokens_per_s": tokens / p50 * 1e3, "step_tflop": flop / 1e12,
-        "model_flop_share": flop / (p50 / 1e3 * BF16_FLOPS),
-        "flop_bound_ms": flop / BF16_FLOPS * 1e3, "opt_ms": opt_ms,
-        "opt_bytes_gb": opt_bytes / 1e9, "opt_bound_ms": opt_bytes / HBM_BYTES_PER_S * 1e3,
-        "step_bound_ms": (flop / BF16_FLOPS + opt_bytes / HBM_BYTES_PER_S) * 1e3,
+        "model_flop_share": flop / (p50 / 1e3 * h100("PEAK_FLOPS_BF16")),
+        "flop_bound_ms": flop / h100("PEAK_FLOPS_BF16") * 1e3, "opt_ms": opt_ms,
+        "opt_bytes_gb": opt_bytes / 1e9, "opt_bound_ms": opt_bytes / h100("HBM_BW") * 1e3,
+        "step_bound_ms": (flop / h100("PEAK_FLOPS_BF16") + opt_bytes / h100("HBM_BW")) * 1e3,
         "peak_gb": peak / 1e9, "held_before_gb": held / 1e9, "analytic_state_gb": state_gb,
         **prof_line, "s": time.perf_counter() - t0}}))
     check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
@@ -1948,6 +1976,126 @@ def train_phase(dev):
     check(res["restored"], "12c: the resumed run did not restore step 5")
     check(abs(res["resumed_loss"] - res["final_loss"]) < TRAIN_RESUME_TOL,
           f"12c: resumed final loss {res['resumed_loss']} vs {res['final_loss']}")
+
+
+# phase 13: LM training over a (data, model) mesh of ranks sharing the card
+MESH_SHAPES = ((2, 1), (1, 2))
+MESH_SMOKE_TOL = 1e-4              # 13a: loss and gradients, mesh against one process
+MESH_FULL_TOL = 3e-4               # 13b: each loss, relative to the one-process run's:
+                                   # sound 1.2e-4, planted faults 1.2e-3 and 1.4e-3
+                                   # (1e-2 before those readings; PERF.md)
+MESH_GNORM_TOL = 3e-3              # 13b: each grad_norm, relative: sound 8.3e-4,
+                                   # planted faults 0.22-0.65 (PERF.md)
+MESH_INIT_SLACK_GB = 0.1           # 13b: a rank's peak while drawing the weights over
+                                   # its blocks, beyond the largest weight's draw
+MESH_RESUME_TOL = 1e-4             # 13c: tests/test_ft.py's bound
+
+
+def mesh_phase(dev):
+    """Phase 13: training on a mesh of 2 ranks that share the card over gloo
+    (``repro_torch.training.mesh_check.chip_rank``, one spawn a layout, at
+    (2, 1) and (1, 2)): (13a) the 10 smoke architectures in float32, one
+    differentiation and one AdamW and one Adafactor step against the
+    one-process ones; (13b) llama3.2-1b at full width in bfloat16 (AdamW,
+    lr 3e-4, batch 8 x 128, microbatch 2, remat), the weights drawn a
+    weight at a time (a rank's peak within its blocks and the largest
+    weight's draw), 1 warm-up and 3 steps of the step-indexed pipeline,
+    each loss and grad_norm against the one-process trainer's from the
+    same seeded weights on the same batches (run here first);
+    (13c) the smoke llama through ``launch/train.py --devices 2 --backend
+    gloo`` crashed at step 7 and resumed ends at the uninterrupted run's
+    loss, and its step-5 checkpoint resumes in the one-process trainer."""
+    from repro_torch import configs as C
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import get_model
+    from repro_torch.training import OptConfig, init_state, make_train_step
+    from repro_torch.training import check as train_check
+    from repro_torch.training import mesh_check
+
+    BUILD.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    cfg = C.get_config(mesh_check.FULL_ARCH)
+    full = mesh_check.FULL
+    api = get_model(cfg, dev)
+    params = api.init(api.generator(0))
+    opt = OptConfig(name=cfg.optimizer, lr=full["lr"])
+    state = init_state(api.param_tree(params), opt)
+    step = make_train_step(api.tree_loss, opt, microbatch=cfg.microbatch)
+    pipe = TokenPipeline(cfg.vocab, full["batch"], full["seq"], seed=1)
+    ref_losses, ref_gnorms, ref_ms = [], [], []
+    for i in range(full["steps"]):
+        t1 = time.perf_counter()
+        state, m = step(state, _train_batch(pipe.batch_at(i), dev))
+        ref_losses.append(float(m["loss"]))
+        ref_gnorms.append(float(m["grad_norm"]))
+        ref_ms.append((time.perf_counter() - t1) * 1e3)
+    del state, params, m
+    torch.cuda.empty_cache()
+    log(json.dumps({"mesh_reference": {"arch": mesh_check.FULL_ARCH, "losses": ref_losses,
+                                       "grad_norms": ref_gnorms, "step_ms": ref_ms,
+                                       "s": time.perf_counter() - t0}}))
+
+    for shape in MESH_SHAPES:
+        t0 = time.perf_counter()
+        out = BUILD / f"mesh_{shape[0]}x{shape[1]}.json"
+        out.unlink(missing_ok=True)
+        spawn(mesh_check.chip_rank, 2, args=(shape, str(out), tuple(REPLACES)),
+              device="cuda", backend="gloo", store=BUILD / "mesh_store")
+        res = json.loads(out.read_text())
+        log(json.dumps({"mesh_models": {"mesh": list(shape), "errors": res["smoke"],
+                                        "bound": MESH_SMOKE_TOL,
+                                        "step_share_bound": TRAIN_STEP_SHARE,
+                                        "s": res["smoke_s"]}}))
+        bad = {a: e for a, e in res["smoke"].items()
+               if max(e["loss"], e["grads"]) >= MESH_SMOKE_TOL
+               or max(e["adamw"]["share"], e["adafactor"]["share"]) > TRAIN_STEP_SHARE}
+        check(not bad, f"13a: mesh {shape} against one process: {bad}")
+        f = res["full"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(f["losses"], ref_losses)]
+        grel = [abs(a - b) / abs(b) for a, b in zip(f["grad_norms"], ref_gnorms)]
+        log(json.dumps({"mesh_full": {**f, "ref_losses": ref_losses, "loss_rel_err": rel,
+                                      "ref_grad_norms": ref_gnorms, "grad_norm_rel_err": grel,
+                                      "bound": MESH_FULL_TOL, "grad_norm_bound": MESH_GNORM_TOL,
+                                      "launches": res["launches"],
+                                      "s": time.perf_counter() - t0}}))
+        check(all(np.isfinite(f["losses"] + f["grad_norms"])),
+              f"13b: a loss or grad norm is not finite: {f['losses']} {f['grad_norms']}")
+        check(max(rel) < MESH_FULL_TOL,
+              f"13b: mesh {shape} losses {f['losses']} vs one process {ref_losses}")
+        check(max(grel) < MESH_GNORM_TOL,
+              f"13b: mesh {shape} grad norms {f['grad_norms']} vs one process {ref_gnorms}")
+        over = [r for r in f["ranks"] if r["draw_peak_gb"]
+                > r["blocks_gb"] + f["largest_weight_gb"] + MESH_INIT_SLACK_GB]
+        check(not over, f"13b: a rank held more than its blocks and one weight while "
+              f"drawing the weights: {over} (largest weight {f['largest_weight_gb']} GB)")
+        check(not any(res["launches"].values()),
+              f"13: the mesh path launched a search kernel: {res['launches']}")
+
+    t0 = time.perf_counter()
+    work = BUILD / "mesh_resume"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        # the one-process trainer resumes from the mesh's step-5 checkpoint
+        # while the mesh run resumes from it
+        res = train_check.crash_and_resume(
+            "cuda", work, SRC, extra=("--devices", "2", "--backend", "gloo"),
+            alongside=lambda crash: train_check.resume_one_process(
+                "cuda", crash / f"step_{train_check.RESUME_STEP}", work / "one", SRC))
+        one = res.pop("alongside")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(json.dumps({"mesh_resume": {**res, "one_process": one, "bound": MESH_RESUME_TOL,
+                                    "s": time.perf_counter() - t0}}))
+    check(res["rc_full"] == 0 and res["rc_resume"] == 0
+          and res["rc_crash"] == train_check.FAILURE_EXIT,
+          f"13c: mesh trainer exit codes {res}")
+    check(res["restored"], "13c: the resumed mesh run did not restore step 5")
+    check(abs(res["resumed_loss"] - res["final_loss"]) < MESH_RESUME_TOL,
+          f"13c: resumed final loss {res['resumed_loss']} vs {res['final_loss']}")
+    check(one["rc"] == 0 and one["restored"] and "losses" in res
+          and abs(one["loss"] - res["losses"][train_check.RESUME_STEP]) < MESH_RESUME_TOL,
+          f"13c: the one-process trainer from the mesh's step-5 checkpoint: {one}")
 
 
 def main(argv=None) -> int:
@@ -2012,6 +2160,10 @@ def main(argv=None) -> int:
     rows = main_path_kernels(index, db, res64, dev, launches)
     for storage in ("f32", "packed"):
         profile_search(index, db, dev, rep[storage]["p50_batch_ms"], storage)
+    log(json.dumps({"reduced": {"ndpsim_queries": NDPSIM_QUERIES,
+                                "from": NDPSIM_QUERIES_FULL,
+                                "why": "room for phase 13: with it the script would run "
+                                       "~820 s at the earlier depths"}}))
     t0 = time.perf_counter()
     if ndpsim_phase(index, db, dev, kernels) is None:
         check(ndpsim_phase(index, db, dev, kernels, NDPSIM_CUT_QUERIES) is not None,
@@ -2023,8 +2175,9 @@ def main(argv=None) -> int:
                                     "why": "phase 8 at full traffic took 283-311 s, over "
                                            "its 3-minute budget"}}))
     log(json.dumps({"reduced": {"churn_rounds": CHURN_ROUNDS, "from": CHURN_ROUNDS_FULL,
-                                "why": "room for phase 11: the script ran 519-564 s "
-                                       "through phase 10"}}))
+                                "why": "room for phases 11 and 13: the script ran "
+                                       "519-564 s through phase 10, and phase 13 adds "
+                                       "~250 s"}}))
     t0 = time.perf_counter()
     churn_phase(index, db, dev, kernels, rep["f32"]["recall_at_10"], **churn)
     log(json.dumps({"churn_phase_s": time.perf_counter() - t0}))
@@ -2048,6 +2201,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     train_phase(dev)
     log(json.dumps({"train_phase_s": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    mesh_phase(dev)
+    log(json.dumps({"mesh_phase_s": time.perf_counter() - t0}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,1 +1,2 @@
-"""Fault tolerance: crash-ordered, checksummed checkpoints (``checkpoint``)."""
+"""Fault tolerance: crash-ordered, checksummed checkpoints (``checkpoint``)
+and placing a state on another mesh (``elastic``)."""

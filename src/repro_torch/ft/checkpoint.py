@@ -210,10 +210,16 @@ def _bfloat16(a: np.ndarray, device):
     return a.view(ml_dtypes.bfloat16)
 
 
-def restore(ckpt_dir: str | Path, abstract_tree, device=None):
+def restore(ckpt_dir: str | Path, abstract_tree, device=None, mesh=None, spec_fn=None):
     """Restore into the structure of ``abstract_tree``: numpy arrays, or
     torch tensors on ``device`` when one is named.  Returns ``(tree,
     manifest)``.
+
+    On ``mesh`` (a live ``launch.mesh.Mesh``; ``abstract_tree`` then has the
+    global shapes) each leaf is placed by the sharding rules
+    (``spec_fn(abstract_tree, mesh)``, default the parameter rules): this
+    rank's block, on ``device`` (default the mesh's).  The layout on disk
+    is the global one whatever mesh wrote it.
 
     Verifies every array against the manifest's recorded checksums (when
     present) and raises :class:`~repro_torch.resilience.CorruptArtifactError`
@@ -247,6 +253,16 @@ def restore(ckpt_dir: str | Path, abstract_tree, device=None):
     if missing:
         raise ValueError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
     vals = {}
+    if mesh is not None:
+        from repro_torch.distributed import sharding as sh
+
+        specs = sh.flat((spec_fn or sh.param_specs)(abstract_tree, mesh))
+        for k in flat_abs:
+            a = raw.pop(k)
+            t = (_bfloat16(a, "cpu") if dtypes.get(k) == "bfloat16"
+                 else torch.from_numpy(np.array(a, order="C")))
+            vals[k] = sh.place(t, specs[k], mesh, device)
+        return _unflatten(abstract_tree, vals), manifest
     for k in flat_abs:
         a = raw[k]
         if dtypes.get(k) == "bfloat16":

@@ -7,8 +7,9 @@ The JAX package's ``examples/train_lm.py`` on the port: the same arguments
 to ``repro_torch.launch.train`` (llama3.2-1b's smoke config, batch 8, seq
 128, microbatch 2, a checkpoint every 50 steps under ``--ckpt``, resuming
 from the latest), on ``--device`` (default ``cuda``, which raises without
-a card).  ``--devices`` asks for multi-card training, which is not ported
-yet and raises.
+a card).  ``--devices N`` trains on a ``1xN`` mesh of N ranks (one card a
+rank over NCCL, or ``--backend gloo`` for ranks that share cards; gloo
+ranks on ``--device cpu``).
 """
 import argparse
 import os
@@ -22,6 +23,7 @@ def main(argv=None):
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(),
                                                    "repro_torch_train_ckpt"))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", default=None)
     args = ap.parse_args(argv)
 
     from repro_torch.launch import train
@@ -32,6 +34,8 @@ def main(argv=None):
             "--device", args.device]
     if args.devices:
         argv += ["--devices", str(args.devices), "--mesh", f"1x{args.devices}"]
+    if args.backend:
+        argv += ["--backend", args.backend]
     train.main(argv)
 
 

@@ -15,11 +15,14 @@ the forward functions read as the reference's.  Weights are created with
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.axes import dp_sum, live
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,7 +196,29 @@ def cross_entropy(logits, labels, mask=None):
     if mask is None:
         return nll.mean()
     mask = mask.float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    # on a live mesh: this rank's share of the global batch's masked mean
+    # (the count over every rank of the data axes; the ranks' losses average
+    # to the global one)
+    mesh = live()
+    count = dp_sum(mask.sum().detach())
+    return (nll * mask).sum() * (mesh.dp_size if mesh else 1) / torch.clamp(count, min=1.0)
+
+
+# a function every ``uinit`` draw goes through while :func:`each_draw` is in
+# force (``models.convert.init_sharded`` cuts each to a rank's block)
+_EACH_DRAW = {"fn": None}
+
+
+@contextlib.contextmanager
+def each_draw(fn):
+    """Within: ``uinit`` returns ``fn(w)`` for each weight ``w`` it makes
+    (on the meta device too), in the order it makes them."""
+    prev = _EACH_DRAW["fn"]
+    _EACH_DRAW["fn"] = fn
+    try:
+        yield
+    finally:
+        _EACH_DRAW["fn"] = prev
 
 
 def uinit(generator, shape, scale, dtype, device=None):
@@ -201,9 +226,12 @@ def uinit(generator, shape, scale, dtype, device=None):
     On the meta device (shapes only) nothing is drawn."""
     device = torch.device(device) if device is not None else generator.device
     if device.type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
-    w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+        w = torch.empty(shape, dtype=dtype, device=device)
+    else:
+        w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        w = w.mul_(scale).to(dtype)
+    fn = _EACH_DRAW["fn"]
+    return w if fn is None else fn(w)
 
 
 def ones(n, dtype, device):

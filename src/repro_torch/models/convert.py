@@ -17,6 +17,12 @@ shapes, and :func:`train_state_tree` / :func:`load_train_state` carry a
 whole ``TrainState`` in the keys of the reference's checkpoint
 (``.params/...``, ``.opt_state/...``, ``.step``, ``.error_fb/...`` when
 set) both ways.
+
+On a mesh of ranks the weights are cut to each rank's block of the
+sharding rules' layout (:func:`shard_params`; :func:`from_jax_params` with
+``mesh=`` carries the reference's arrays in so), and a sharded state is
+gathered a leaf at a time for a checkpoint (:func:`gather_train_state`);
+the layout on disk is the global one either way.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import sharding as sh
 from repro_torch.ft.checkpoint import _bfloat16
 from repro_torch.models.common import ModelConfig, Params
 from repro_torch.models.transformer import layer_specs
@@ -65,9 +72,13 @@ def _stack(trees: list[dict]) -> dict:
             else np.stack([t[k] for t in trees]) for k in trees[0]}
 
 
-def from_jax_params(cfg: ModelConfig, tree: dict, device="cuda") -> Params:
-    """The reference's parameter tree as the port's weights on ``device``."""
+def from_jax_params(cfg: ModelConfig, tree: dict, device="cuda", mesh=None) -> Params:
+    """The reference's parameter tree as the port's weights on ``device``;
+    on ``mesh`` (a live ``launch.mesh.Mesh``) this rank's blocks
+    (:func:`shard_params`), cut on the host."""
     dev = resolve_device(device)
+    if mesh is not None:
+        return shard_params(cfg, from_jax_params(cfg, tree, "cpu"), mesh).to(dev)
     items = {k: _tensor(v, dev) for k, v in tree.items() if not isinstance(v, dict)}
     if cfg.is_encdec:
         items.update(enc_blocks=[_module(tree["enc_blocks"], dev, i)
@@ -120,6 +131,76 @@ def cache_to_numpy(cfg: ModelConfig, cache: dict) -> dict:
                                  for k in layers[i]}
                      for i in range(cfg.period)}
     return out
+
+
+@torch.no_grad()
+def shard_params(cfg: ModelConfig, params: Params, mesh, abstract: Params | None = None
+                 ) -> Params:
+    """Cut every weight of ``params`` (the global arrays) to this rank's
+    block of the rules' train layout on ``mesh``, in place, a leaf at a
+    time: each parameter keeps its object and holds its block, with its
+    spec in ``mesh_spec`` (a ``Stacked`` group's tensors the spec without
+    the group axis, which the rules never split).  With ``abstract`` (the
+    model's ``abstract_params()``: the global shapes) a weight that is
+    already its block is left as it is.  Returns ``params``."""
+    tree = param_tree(cfg, params)
+    shapes = tree if abstract is None else param_tree(cfg, abstract)
+    for leaf, full, spec in zip(leaves(tree), leaves(shapes),
+                                leaves(sh.param_specs(shapes, mesh))):
+        if isinstance(leaf, Stacked):
+            if spec[0] is not None:
+                raise ValueError(f"the rules split a stacked group axis: {spec}")
+            spec = spec[1:]
+        ts, fs = ((leaf, full) if isinstance(leaf, Stacked) else ((leaf,), (full,)))
+        for t, f in zip(ts, fs):
+            if t.shape == f.shape:
+                t.data = sh.shard(t.data, spec, mesh).clone()
+            t.mesh_spec = tuple(spec)
+    return params
+
+
+@torch.no_grad()
+def init_sharded(api, generator, mesh) -> Params:
+    """``shard_params(cfg, api.init(generator), mesh)``, drawn a weight at a
+    time: each draw of ``uinit`` is cut to this rank's block as it is made
+    and the global draw freed before the next, so a rank holds its blocks
+    and at most one global weight (the generator draws every weight in
+    full, so the values are the one-process ones).  Works on anything with
+    ``axis_names``, a shape and a ``rank`` as ``mesh``."""
+    from repro_torch.models.common import each_draw
+
+    cfg = api.cfg
+    drawn = {}                          # storage of a meta draw -> its number
+
+    def note(w):
+        drawn[_storage(w)] = len(drawn)
+        return w
+
+    with each_draw(note):
+        abstract = api.abstract_params()
+    tree = param_tree(cfg, abstract)
+    spec_of = {}                        # draw number -> the spec of its block
+    for leaf, spec in zip(leaves(tree), leaves(sh.param_specs(tree, mesh))):
+        if isinstance(leaf, Stacked):
+            spec = spec[1:]
+        for t in (leaf if isinstance(leaf, Stacked) else (leaf,)):
+            if _storage(t) in drawn:
+                spec_of[drawn[_storage(t)]] = tuple(spec)
+    count = iter(range(len(drawn)))
+
+    def cut(w):
+        spec = spec_of.get(next(count))
+        return w if spec is None else sh.shard(w, spec, mesh).clone()
+
+    with each_draw(cut):
+        params = api.init(generator)
+    return shard_params(cfg, params, mesh, abstract)
+
+
+def _storage(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage (a parameter shares its tensor's,
+    on the meta device too)."""
+    return t.untyped_storage()._cdata
 
 
 class ParamTree(dict):
@@ -184,6 +265,47 @@ def train_state_tree(state, abstract: bool = False) -> dict:
     if state.error_fb is not None:
         out[".error_fb"] = _host(state.error_fb, abstract)
     return out
+
+
+def abstract_param_tree(cfg: ModelConfig, abstract_params: Params) -> dict:
+    """The reference's parameter tree of ``abstract_params`` as tensors of
+    its shapes on the meta device (a ``Stacked`` group stacked)."""
+    return _host(param_tree(cfg, abstract_params), True)
+
+
+def abstract_train_state(cfg: ModelConfig, abstract_params: Params, opt_cfg,
+                         compress: bool = False) -> dict:
+    """The global shapes (on the meta device) of a ``TrainState`` of the
+    model, in :func:`train_state_tree`'s keys: what the sharding rules and
+    a checkpoint's restore read, with no array allocated."""
+    from repro_torch.training import GradCompressor, optim
+
+    tree = param_tree(cfg, abstract_params)
+    out = {".params": abstract_param_tree(cfg, abstract_params),
+           ".opt_state": _host(optim.init_opt_state(tree, opt_cfg), True),
+           ".step": torch.empty((), dtype=torch.int32, device="meta")}
+    if compress:
+        out[".error_fb"] = _host(GradCompressor().init_error(tree), True)
+    return out
+
+
+@torch.no_grad()
+def gather_train_state(state, specs: dict, mesh, writer: int = 0):
+    """A ``TrainState`` sharded on ``mesh`` as :func:`train_state_tree`'s
+    host tensors of the global arrays, on rank ``writer`` (None on the
+    others).  A leaf at a time: each is gathered (a ``Stacked`` group's
+    blocks stacked first), copied to the writer's host and dropped, so no
+    rank holds more than one global leaf on its device."""
+    live = {".params": state.params, ".opt_state": state.opt_state, ".step": state.step}
+    if state.error_fb is not None:
+        live[".error_fb"] = state.error_fb
+    out = []
+    for leaf, spec in zip(leaves(live), leaves({k: specs[k] for k in live})):
+        x = torch.stack(list(leaf)) if isinstance(leaf, Stacked) else leaf
+        x = sh.gather(x.detach(), spec, mesh)
+        out.append(x.cpu().clone() if mesh.rank == writer else None)
+        del x
+    return rebuild(live, out) if mesh.rank == writer else None
 
 
 @torch.no_grad()

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.axes import linear, weight_use
 from repro_torch.models.common import ModelConfig, Params, ones, rms_norm, uinit, zeros
 
 
@@ -82,19 +83,20 @@ def mamba2_mixer(x, p, cfg: ModelConfig, conv_state=None, ssm_state=None,
     di, s, heads, dh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.head_dim
     k = cfg.ssm_conv
 
-    zxbcdt = x @ p.in_proj
+    zxbcdt = linear(x, p.in_proj, None, "model")
     z, xin, b, c, dt = torch.split(zxbcdt, [di, di, s, s, heads], dim=-1)
     dt = F.softplus(dt.float() + p.dt_bias)                      # (B,T,H)
 
     conv_in = torch.cat([xin, b, c], dim=-1)                     # (B,T,di+2s)
+    conv_w = weight_use(p.conv_w, x, None, None)
     if decode:
         window = torch.cat([conv_state, conv_in], dim=1)         # (B,k,di+2s)
         new_conv_state = window[:, 1:]
-        conv = torch.einsum("bkp,kp->bp", window, p.conv_w)[:, None] + p.conv_b
+        conv = torch.einsum("bkp,kp->bp", window, conv_w)[:, None] + p.conv_b
     else:
         pad = F.pad(conv_in, (0, 0, k - 1, 0))
         windows = torch.stack([pad[:, i: i + t] for i in range(k)], dim=2)  # (B,T,k,P)
-        conv = torch.einsum("btkp,kp->btp", windows, p.conv_w) + p.conv_b
+        conv = torch.einsum("btkp,kp->btp", windows, conv_w) + p.conv_b
         new_conv_state = pad[:, -(k - 1):] if k > 1 else None
     conv = F.silu(conv.float()).to(x.dtype)
     xc, bc, cc = torch.split(conv, [di, s, s], dim=-1)
@@ -117,7 +119,7 @@ def mamba2_mixer(x, p, cfg: ModelConfig, conv_state=None, ssm_state=None,
     y = y + xh.float() * p.d_skip[None, None, :, None]
     y = y.reshape(bsz, -1, di).to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), p.out_norm, cfg.norm_eps)
-    out = y @ p.out_proj
+    out = linear(y, p.out_proj, "model", None)
     return out, (new_conv_state, new_ssm)
 
 

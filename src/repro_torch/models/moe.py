@@ -6,32 +6,36 @@ MoE variants:
   * shared experts always on (qwen2-moe: 4 shared)
   * a dense residual FFN in parallel with the routed experts (arctic)
 
-The reference groups tokens into one chunk per data-parallel shard of its
-mesh (``dp_size()``); on one card that count is 1, its value without a
-mesh, so the position-in-expert prefix sum runs over all tokens.  Its
-``weight_use`` / ``constrain`` sharding hints have no counterpart here.
+Tokens are grouped into one chunk per data-parallel shard of the ambient
+mesh (``distributed.axes.dp_size()``, 1 with none) and the
+position-in-expert prefix sum runs within a chunk, as the reference's.
+On a live mesh a rank's rows are its chunk; the load-balance fractions
+are averaged over the data axes, so the aux loss is the global batch's.
+Weights meet their activations at the use sites of ``distributed.axes``
+(experts over ``model``: EP).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.axes import constrain, dp_size, dp_sum, linear, live, weight_use
 from repro_torch.models.common import ModelConfig, Params, uinit
 
 
 def swiglu(x, wi, wg, wo):
-    h = x @ wi
-    g = x @ wg
+    h = linear(x, wi, None, "model")
+    g = linear(x, wg, None, "model")
     h = F.silu(g) * h               # native dtype, as the reference
-    return h @ wo
+    return linear(h, wo, "model", None)
 
 
 def expert_swiglu(x, wi, wg, wo):
     """x (..., E, C, D); w* (E, D, F)/(E, F, D) -> (..., E, C, D)."""
-    h = torch.matmul(x, wi)
-    g = torch.matmul(x, wg)
+    h = linear(x, wi, "model", None, None)      # EP kept; dp gathered
+    g = linear(x, wg, "model", None, None)
     h = F.silu(g) * h
-    return torch.matmul(h, wo)
+    return linear(h, wo, "model", None, None)
 
 
 def top_k(probs, k: int):
@@ -49,6 +53,7 @@ def route(xt, router, cfg: ModelConfig):
     capacity."""
     e, k = cfg.moe_experts, cfg.moe_top_k
     g, nl, _ = xt.shape
+    router = weight_use(router, xt, None, None)
     logits = torch.einsum("gnd,de->gne", xt.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = top_k(probs, k)                               # (g, nl, k)
@@ -65,7 +70,11 @@ def moe_ffn(x, p, cfg: ModelConfig):
     """x (B, T, D) -> (B, T, D), plus the aux load-balance loss."""
     b, t, d = x.shape
     e = cfg.moe_experts
-    xt = x.reshape(1, b * t, d)                                  # one dp chunk
+    n = b * t
+    g = 1 if live() is not None else dp_size()   # a live rank holds one chunk
+    if n % g:
+        g = 1
+    xt = constrain(x.reshape(g, n // g, d), "dp", None, None)
     probs, top_p, top_e, pos, keep, cap = route(xt, p.router, cfg)
     oh_e = F.one_hot(top_e, e).to(x.dtype)                       # (g,nl,k,E)
     # a dropped choice points one past the buffer: an all-zero one-hot
@@ -84,6 +93,8 @@ def moe_ffn(x, p, cfg: ModelConfig):
 
     # GShard aux loss: mean(fraction routed * mean prob) * E
     frac = oh_e.sum(2).mean((0, 1))                              # (E,)
+    if live() is not None:           # over every chunk: the data axes' mean
+        frac = dp_sum(frac) / dp_size()
     aux = (frac * probs.mean((0, 1))).sum() * e
     return yt.reshape(b, t, d), aux
 

@@ -8,9 +8,12 @@ enc-dec.
 The reference stacks each pattern position's weights over the repeat groups
 and scans over the groups; here the model holds one block per layer
 (``params.blocks[l]``, layer ``l = g * period + i`` is group g's position i,
-the reference's ``blocks/pos{i}[g]``) and a Python loop runs them.  The
-reference's ``weight_use`` and ``constrain`` are sharding hints for its JAX
-mesh and have no counterpart on one card.
+the reference's ``blocks/pos{i}[g]``) and a Python loop runs them.  Each
+weight meets its activation at a use site of ``distributed.axes``
+(``linear``, ``embed_lookup``), at the reference's ``weight_use`` lines:
+with no mesh in scope it is the plain product; on a live mesh it gathers
+the weight from its storage layout and completes the product over the
+``model`` axis (``distributed/axes.py``).
 
 The decode cache is ``dict(pos=int, layers=[...])``: ``pos`` is a host
 integer, so a step never waits on the device to read it, and each layer
@@ -24,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed.axes import constrain, embed_lookup, linear
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import NEG, chunked_attention
@@ -105,6 +109,14 @@ def lm_head(params, cfg: ModelConfig):
     return params.embed.T if cfg.tie_embeddings else params.head
 
 
+def logits_of(x, params, cfg: ModelConfig):
+    """``x @ lm_head(params, cfg)`` at the head's use site (the vocabulary
+    over ``model``)."""
+    if cfg.tie_embeddings:
+        return linear(x, params.embed, "model", None, transpose=True)
+    return linear(x, params.head, None, "model")
+
+
 # ---------------------------------------------------------------------------
 # block forward (train / prefill)
 # ---------------------------------------------------------------------------
@@ -128,7 +140,10 @@ def _naive_attention(q, k, v, *, causal: bool):
 def _qkv(x, p, cfg: ModelConfig, positions):
     b, t, _ = x.shape
     h, k, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, kx, vx = x @ p.wq, x @ p.wk, x @ p.wv
+    # FSDP: weights stored dp-sharded; gathered to the TP layout at use
+    q = linear(x, p.wq, None, "model")
+    kx = linear(x, p.wk, None, "model")
+    vx = linear(x, p.wv, None, "model")
     if cfg.qkv_bias:
         q, kx, vx = q + p.bq, kx + p.bk, vx + p.bv
     q = q.reshape(b, t, h, dh)
@@ -148,7 +163,7 @@ def attn_forward(x, p, cfg: ModelConfig, positions, causal=True, kv_len=None,
         o = _naive_attention(q, kx, vx, causal=causal)
     else:
         o = chunked_attention(q, kx, vx, causal=causal, kv_len=kv_len)
-    out = o.reshape(b, t, -1) @ p.wo
+    out = linear(o.reshape(b, t, -1), p.wo, "model", None)
     if return_kv:
         return out, (kx, vx)
     return out
@@ -189,7 +204,7 @@ def backbone(params, x, cfg: ModelConfig, positions):
 
 
 def _embed(params, tokens, prefix_embeds):
-    x = params.embed[tokens]                                     # (B,T,D)
+    x = embed_lookup(params.embed, tokens)                       # (B,T,D)
     if prefix_embeds is None:
         return x, 0
     return torch.cat([prefix_embeds.to(x.dtype), x], dim=1), prefix_embeds.shape[1]
@@ -203,12 +218,14 @@ def lm_forward(params, tokens, cfg: ModelConfig, prefix_embeds=None):
     token positions.
     """
     x, n_prefix = _embed(params, tokens, prefix_embeds)
+    x = constrain(x, "dp", None, None)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None, :]
     x, aux = backbone(params, x, cfg, positions)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     if n_prefix:
         x = x[:, n_prefix:]
-    return x @ lm_head(params, cfg), aux
+    logits = constrain(logits_of(x, params, cfg), "dp", None, "model")
+    return logits, aux
 
 
 def lm_loss(params, batch, cfg: ModelConfig):
@@ -275,7 +292,7 @@ def attn_decode(x, p, kcache, vcache, pos: int, cfg: ModelConfig):
     o = torch.einsum("bkgs,bskh->bkgh", pw.to(kcache.dtype).float(), vcache.float())
     o = o + p_cur * vx[:, 0, :, None, :].float()
     o = o / (pw.sum(-1)[..., None] + p_cur)
-    out = o.reshape(b, h * dh).to(x.dtype) @ p.wo
+    out = linear(o.reshape(b, h * dh).to(x.dtype), p.wo, "model", None)
     return out[:, None], kx, vx
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.axes import constrain, embed_lookup, linear
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import chunked_attention
 from repro_torch.models.common import (ModelConfig, Params, cross_entropy, ones, remat,
@@ -64,11 +65,11 @@ def _mlp(x, p, cfg: ModelConfig):
 def _xattn(x, p, memory, cfg: ModelConfig):
     b, t, _ = x.shape
     h, k, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p.wq).reshape(b, t, h, dh)
-    kx = (memory @ p.wk).reshape(b, -1, k, dh)
-    vx = (memory @ p.wv).reshape(b, -1, k, dh)
+    q = linear(x, p.wq, None, None).reshape(b, t, h, dh)
+    kx = linear(memory, p.wk, None, None).reshape(b, -1, k, dh)
+    vx = linear(memory, p.wv, None, None).reshape(b, -1, k, dh)
     o = chunked_attention(q, kx, vx, causal=False)
-    return o.reshape(b, t, h * dh) @ p.wo
+    return linear(o.reshape(b, t, h * dh), p.wo, None, None)
 
 
 def _enc_block(x, p, cfg: ModelConfig, positions):
@@ -97,12 +98,12 @@ def encode(params, frames, cfg: ModelConfig):
 
 def encdec_forward(params, frames, tokens, cfg: ModelConfig):
     memory = encode(params, frames, cfg)
-    x = params.embed[tokens]
+    x = embed_lookup(params.embed, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
     for p in params.dec_blocks:
         x = remat(_dec_block, cfg, x, p, memory, cfg, positions)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return x @ params.head
+    return constrain(linear(x, params.head, None, "model"), "dp", None, "model")
 
 
 def encdec_loss(params, batch, cfg: ModelConfig):

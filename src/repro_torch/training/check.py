@@ -116,14 +116,47 @@ def _final_loss(out: str) -> float:
     return float(re.search(r"\[done\] final loss ([0-9.]+)", out).group(1))
 
 
-def crash_and_resume(device: str, work: Path, src: Path, timeout: float = 300) -> dict:
-    """``python -m repro_torch.launch.train`` on ``device`` three times: an
-    uninterrupted run of 12 steps and a run that crashes at step 7 (both at
-    once), then a ``--resume`` of the crashed run from its step-5
-    checkpoint.  Returns the exit codes, whether the resume said ``restored
-    step 5`` and both final losses."""
+def step_losses(out: str) -> dict:
+    """``{step: loss}`` of the trainer's step lines."""
+    return {int(m.group(1)): float(m.group(2))
+            for m in re.finditer(r"step +(\d+) loss ([0-9.]+)", out)}
+
+
+def resume_one_process(device: str, ckpt: Path, work: Path, src: Path,
+                       timeout: float = 300) -> dict:
+    """The one-process trainer on ``device`` resumed from the checkpoint
+    directory ``ckpt`` (``.../step_N``, copied under ``work`` first: a
+    run resuming in ``ckpt``'s directory may write beside it meanwhile)
+    for one step: its exit code, whether it said ``restored step N`` and
+    that step's loss."""
+    import shutil
+
+    n = int(ckpt.name.split("_")[1])
+    shutil.copytree(ckpt, work / ckpt.name)
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--device",
+                           device, *TRAIN_ARGS, "--steps", str(n + 1), "--ckpt-dir",
+                           str(work), "--resume"], env={**os.environ, "PYTHONPATH": str(src)},
+                          capture_output=True, text=True, timeout=timeout)
+    res = dict(rc=proc.returncode, restored=f"[resume] restored step {n}" in proc.stdout,
+               loss=step_losses(proc.stdout).get(n))
+    if proc.returncode:
+        res["stderr"] = proc.stderr[-2000:]
+    return res
+
+
+def crash_and_resume(device: str, work: Path, src: Path, timeout: float = 300,
+                     extra=(), alongside=None) -> dict:
+    """``python -m repro_torch.launch.train`` on ``device`` (with ``extra``
+    arguments, such as ``--devices 2``) three times: an uninterrupted run
+    of 12 steps and a run that crashes at step 7 (both at once), then a
+    ``--resume`` of the crashed run from its step-5 checkpoint.  Returns
+    the exit codes, whether the resume said ``restored step 5``, both final
+    losses and every step's loss of the uninterrupted run.  ``alongside``:
+    a function of the crashed run's directory, called while the resume
+    runs (its result under ``"alongside"``)."""
     env = {**os.environ, "PYTHONPATH": str(src)}
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device", device, *TRAIN_ARGS]
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device", device, *TRAIN_ARGS,
+           *extra]
 
     def start(ckpt_dir, *extra):
         return subprocess.Popen([*cmd, "--ckpt-dir", str(ckpt_dir), *extra], env=env,
@@ -140,11 +173,16 @@ def crash_and_resume(device: str, work: Path, src: Path, timeout: float = 300) -
     full, crash = start(work / "full"), start(work / "crash", "--simulate-failure",
                                                 str(CRASH_STEP))
     (rc_full, out_full, err_full), (rc_crash, _, err_crash) = finish(full), finish(crash)
-    rc_resume, out_resume, err_resume = finish(start(work / "crash", "--resume"))
+    resume = start(work / "crash", "--resume")
+    other = alongside(work / "crash") if alongside is not None else None
+    rc_resume, out_resume, err_resume = finish(resume)
     res = dict(rc_full=rc_full, rc_crash=rc_crash, rc_resume=rc_resume,
                restored=f"[resume] restored step {RESUME_STEP}" in out_resume)
+    if alongside is not None:
+        res["alongside"] = other
     if rc_full == 0 and rc_resume == 0:
-        res.update(final_loss=_final_loss(out_full), resumed_loss=_final_loss(out_resume))
+        res.update(final_loss=_final_loss(out_full), resumed_loss=_final_loss(out_resume),
+                   losses=step_losses(out_full))
     else:
         res["stderr"] = (err_full or err_crash or err_resume)[-2000:]
     return res

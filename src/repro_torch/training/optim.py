@@ -19,14 +19,27 @@ and Adafactor factors and clips the stacked array as the reference does.
 ``step`` is a 0-d int32 tensor on the host.  ``apply_updates`` writes the
 weights and the state in place (no second copy of either at full width) and
 returns them.
+
+On a mesh (``apply_updates(..., mesh=)``) every leaf is this rank's block
+(``training.tree.spec`` names its layout).  AdamW is elementwise and runs
+on the blocks as they are.  Adafactor's row and column means, the mean of
+its row factor and the RMS of the update reduce over dimensions a rank may
+hold a block of: each sums its block and all-reduces the sum over the axes
+that split the dimensions it reduces (the layout the reference's
+``opt_specs`` gives ``vr`` and ``vc``).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import math
+
 import torch
 
-from repro_torch.training.tree import leaves, parts, rebuild, stack, stacked_zeros, tensors
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import axis_size, entry_names, spec_axes
+from repro_torch.training.tree import (leaves, parts, rebuild, spec, stack, stacked_zeros,
+                                       tensors)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,17 +88,28 @@ def _adamw_leaf(p, g, m, v, cfg: OptConfig, bc1, bc2):
     p.copy_(p32 - delta.mul_(cfg.lr))
 
 
-def _adafactor_leaf(p, g, v: dict, cfg: OptConfig, decay) -> dict:
+def _mean(x, dim, entry, mesh, keepdim=False):
+    """``x.mean(dim)`` of the global array when ``x`` is a block whose
+    dimension ``dim`` is split over the axes of ``entry``."""
+    if mesh is None or entry is None:
+        return x.mean(dim, keepdim=keepdim)
+    total = coll.all_reduce(x.sum(dim, keepdim=keepdim), mesh.group(entry_names(entry)))
+    return total / (x.shape[dim] * axis_size(mesh, entry))
+
+
+def _adafactor_leaf(p, g, v: dict, cfg: OptConfig, decay, mesh=None) -> dict:
     """The reference's Adafactor update of one leaf (stacked when a
-    ``Stacked`` group): the new weights written in place, the new state
-    returned."""
+    ``Stacked`` group; this rank's block on a mesh): the new weights
+    written in place, the new state returned."""
+    sp = spec(p) if mesh is not None else (None,) * len(p.shape)
     g = stack(g, torch.float32)
     g2 = g * g + 1e-30
     if g.ndim >= 2:
-        vr = decay * v["vr"] + (1 - decay) * g2.mean(-1)
-        vc = decay * v["vc"] + (1 - decay) * g2.mean(-2)
+        vr = decay * v["vr"] + (1 - decay) * _mean(g2, -1, sp[-1], mesh)
+        vc = decay * v["vc"] + (1 - decay) * _mean(g2, -2, sp[-2], mesh)
         # g-shaped fused chain: no (..., D, F) denominator buffer
-        r = torch.rsqrt(vr / torch.clamp(vr.mean(-1, keepdim=True), min=1e-30) + 1e-30)
+        r = torch.rsqrt(vr / torch.clamp(_mean(vr, -1, sp[-2], mesh, keepdim=True),
+                                         min=1e-30) + 1e-30)
         c = torch.rsqrt(vc + 1e-30)
         u = (g * r[..., None]) * c[..., None, :]
         nv = dict(vr=vr, vc=vc)
@@ -94,7 +118,12 @@ def _adafactor_leaf(p, g, v: dict, cfg: OptConfig, decay) -> dict:
         u = g * torch.rsqrt(nvv + 1e-30)
         nv = dict(v=nvv)
     # update clipping (Shazeer & Stern '18)
-    rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+    if mesh is None or not spec_axes(sp):
+        ms = torch.mean(u * u)
+    else:
+        ms = coll.all_reduce((u * u).sum(), mesh.group(spec_axes(sp))) / (
+            u.numel() * math.prod(axis_size(mesh, e) for e in sp))
+    rms = torch.sqrt(ms + 1e-30)
     u = u / torch.clamp(rms / cfg.clip_threshold, min=1.0)
     p32 = stack(p, torch.float32)
     newp = p32 - cfg.lr * u - cfg.lr * cfg.weight_decay * p32
@@ -104,9 +133,10 @@ def _adafactor_leaf(p, g, v: dict, cfg: OptConfig, decay) -> dict:
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, cfg: OptConfig):
+def apply_updates(params, grads, state, cfg: OptConfig, mesh=None):
     """One optimizer step over ``params`` with ``grads`` (a tree of the same
-    structure); returns ``(params, state)``, both updated in place."""
+    structure; on ``mesh``, a live ``launch.mesh.Mesh``, this rank's
+    blocks); returns ``(params, state)``, both updated in place."""
     step = state["step"] + 1
     ps, gs = leaves(params), leaves(grads)
     dev = tensors(params)[0].device
@@ -121,7 +151,7 @@ def apply_updates(params, grads, state, cfg: OptConfig):
     if cfg.name == "adafactor":
         decay = 1.0 - _f32(s, dev) ** (-cfg.decay_pow)
         vs = _state_leaves(params, state["v"])
-        new_v = [_adafactor_leaf(p, g, v, cfg, decay) for p, g, v in zip(ps, gs, vs)]
+        new_v = [_adafactor_leaf(p, g, v, cfg, decay, mesh) for p, g, v in zip(ps, gs, vs)]
         return params, dict(step=step, v=rebuild(params, new_v))
     raise ValueError(cfg.name)
 

@@ -7,10 +7,25 @@ over the repeat groups (``blocks/pos{i}``, shape (G, ...)) where the port
 keeps one module a layer, so the optimizer, the compressor and a checkpoint
 see the port's per-layer tensors as the reference's stacked leaf.  Leaves
 come in the reference's order: dict keys sorted, as JAX flattens them.
+
+On a mesh every tensor is this rank's block of the reference's array
+(``models.convert.shard_params``), so a ``Stacked`` group is a group of
+blocks and the optimizer updates its slices in place as on one device.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.distributed.axes import storage_spec
+
+
+def spec(leaf) -> tuple:
+    """The storage spec of a leaf in the reference's shape on a mesh (a
+    ``Stacked`` group's with its whole leading axis): the tensors carry
+    their own (``distributed.axes.storage_spec``)."""
+    if isinstance(leaf, Stacked):
+        return (None,) + tuple(storage_spec(leaf[0]))
+    return tuple(storage_spec(leaf))
 
 
 class Stacked(tuple):

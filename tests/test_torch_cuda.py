@@ -26,6 +26,10 @@ The LM stack's smoke models must give the CPU's logits on the card (TF32
 off), and `launch/rag.py` and `launch/serve.py --decode` repeatable tokens;
 their loss and gradients the CPU's, an AdamW step the CPU's weights, and the
 trainer on the card must resume from a crash to the uninterrupted run's loss.
+The mesh train step over 2 and 4 NCCL ranks (one card each) and over 2 gloo
+ranks sharing one card must take the one-process step's losses and weights
+(``repro_torch.training.mesh_check``), and the mesh trainer over NCCL must
+resume from a crash to the uninterrupted run's loss.
 """
 import numpy as np
 import pytest
@@ -706,3 +710,121 @@ def test_cuda_trainer_crash_and_resume(no_tf32, tmp_path):
     assert res["rc_full"] == 0 and res["rc_resume"] == 0, res
     assert res["rc_crash"] == FAILURE_EXIT and res["restored"], res
     assert abs(res["resumed_loss"] - res["final_loss"]) < 1e-4, res
+
+
+def _mesh_steps(tmp_path, shape, cases, backend):
+    """``tests/torch_mesh_ranks.py steps`` on the cards: rank 0's results."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).parent
+    out = tmp_path / "res.json"
+    r = subprocess.run([sys.executable, str(here / "torch_mesh_ranks.py"), "steps", str(out),
+                        json.dumps({shape: cases}), "cuda", backend],
+                       capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": str(here.parent / "src")})
+    assert r.returncode == 0, (r.stdout[-1500:], r.stderr[-2500:])
+    return json.loads(out.read_text())[shape]
+
+
+def _held(res):
+    """``tests/test_torch_mesh_train.py``'s bounds."""
+    for r in res:
+        assert r["loss"] <= 1e-5 and r["grad_norm"] <= 1e-3, r
+        assert r["share"] <= 1e-4 and r["over_lr"] <= 0.25, r
+
+
+MESH_CASES = [dict(arch="llama3.2-1b"), dict(arch="llama3.2-1b", optimizer="adafactor"),
+              dict(arch="qwen2-moe-a2.7b")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["1x2", "2x1"])
+def test_cuda_mesh_two_nccl_ranks(no_tf32, tmp_path, shape):
+    """The mesh train step over 2 NCCL ranks, one card each, takes the
+    one-process step's losses and weights for 3 steps.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL takes one card a rank")
+    _held(_mesh_steps(tmp_path, shape, MESH_CASES, "nccl"))
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_four_nccl_ranks(no_tf32, tmp_path):
+    """The mesh train step over 4 NCCL ranks at (2, 2).  Needs four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: NCCL takes one card a rank")
+    _held(_mesh_steps(tmp_path, "2x2", MESH_CASES, "nccl"))
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_gloo_ranks_share_a_card(no_tf32, tmp_path):
+    """2 gloo ranks on one card (buffers through the host) at (1, 2)."""
+    _held(_mesh_steps(tmp_path, "1x2", MESH_CASES[:1], "gloo"))
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_trainer_nccl_crash_and_resume(no_tf32, tmp_path):
+    """``launch.train --devices 2`` over NCCL: a crash at step 7 exits 17
+    and the resume ends within 1e-4 of the uninterrupted run.  Needs two
+    cards."""
+    from pathlib import Path
+
+    from repro_torch.training.check import FAILURE_EXIT, crash_and_resume
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL takes one card a rank")
+    res = crash_and_resume("cuda", tmp_path, Path(__file__).parent.parent / "src",
+                           extra=("--devices", "2"))
+    assert res["rc_full"] == 0 and res["rc_resume"] == 0, res
+    assert res["rc_crash"] == FAILURE_EXIT and res["restored"], res
+    assert abs(res["resumed_loss"] - res["final_loss"]) < 1e-4, res
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_trainer_refuses_more_nccl_ranks_than_cards():
+    """``--devices N`` over NCCL with fewer than N cards raises."""
+    from repro_torch.launch import train
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match="NCCL ranks need"):
+        train.main(["--smoke", "--steps", "1", "--devices", str(n)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,rank", [((2, 2), 3), ((1, 4), 1)])
+def test_cuda_sharded_init_holds_its_blocks_and_one_weight(cuda, shape, rank):
+    """llama3.2-1b at full width drawn for one rank of a 4-rank mesh
+    (``models.convert.init_sharded``, which needs no process group): the
+    peak while drawing stays within the rank's blocks and the largest
+    weight's float32 draw and cast, and the blocks are those cut from the
+    whole model drawn from the same seed."""
+    import types
+
+    from repro_torch import configs as C
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import init_sharded, shard_params
+
+    dev = cuda
+    cfg = C.get_config("llama3.2-1b")
+    api = get_model(cfg, dev)
+    shapes = list(api.abstract_params().parameters())
+    largest = max(t.numel() for t in shapes) * (4 + cfg.dtype.itemsize)
+    whole = sum(t.numel() * t.element_size() for t in shapes)
+    mesh = types.SimpleNamespace(shape=shape, axis_names=("data", "model"), rank=rank)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_sharded(api, api.generator(0), mesh)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    blocks = torch.cuda.memory_allocated(dev) - base
+    assert blocks < 0.26 * whole, (blocks, whole)
+    assert peak <= blocks + largest + 100e6, (peak, blocks, largest)
+    want = shard_params(cfg, api.init(api.generator(0)), mesh)
+    for (k, a), (k2, b) in zip(params.named_parameters(), want.named_parameters()):
+        assert k == k2 and a.mesh_spec == b.mesh_spec and torch.equal(a, b), k

@@ -155,7 +155,10 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.launch.search, repro_torch.models, repro_torch.models.convert, "
             "repro_torch.models.check, repro_torch.configs, repro_torch.launch.rag, "
             "repro_torch.training, repro_torch.data.pipeline, repro_torch.launch.train, "
-            "repro_torch.launch.train_lm, chip_smoke; "
+            "repro_torch.launch.train_lm, repro_torch.distributed.sharding, "
+            "repro_torch.distributed.axes, repro_torch.distributed.collectives, "
+            "repro_torch.launch.mesh, repro_torch.ft.elastic, "
+            "repro_torch.training.mesh_check, chip_smoke; "
             "from repro_torch import configs; [configs.get_config(a) for a in configs.ARCHS]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")

@@ -139,21 +139,28 @@ def test_trainer_checkpoint_is_the_reference_layout(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--mesh", "1x2"], ["--devices", "2"]])
 def test_trainer_multi_card_flags_raise(flags):
+    """The mesh flags train on a mesh of ranks (``test_torch_mesh_elastic.py``
+    runs them); they raise before starting a rank where they cannot run: a
+    ``--mesh`` of another rank count than ``--devices``, and NCCL asked for
+    CPU ranks."""
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="multi-card training"):
-        train.main(TRAIN + flags)
+    extra = ["--devices", "4"] if "--mesh" in flags else ["--backend", "nccl"]
+    with pytest.raises(ValueError, match="--devices 4|CPU ranks run gloo"):
+        train.main(TRAIN + flags + extra)
 
 
 def test_train_lm_runs_and_its_devices_flag_raises(tmp_path, capsys):
+    """``train_lm`` runs on one device; its ``--devices`` asks for a mesh,
+    which raises before starting a rank when NCCL is asked for CPU ranks."""
     from repro_torch.launch import train_lm
 
     train_lm.main(["--steps", "2", "--ckpt", str(tmp_path), "--device", "cpu"])
     out = capsys.readouterr().out
     assert "step     0 loss" in out and "[done] final loss" in out
-    with pytest.raises(NotImplementedError, match="multi-card training"):
+    with pytest.raises(ValueError, match="CPU ranks run gloo"):
         train_lm.main(["--steps", "2", "--ckpt", str(tmp_path), "--devices", "2",
-                       "--device", "cpu"])
+                       "--device", "cpu", "--backend", "nccl"])
 
 
 def test_trainer_without_a_card_raises(monkeypatch):
