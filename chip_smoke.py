@@ -136,8 +136,9 @@ Phases, each of which fails the run when its check fails:
    within 1e-4 of the one-process ones, and the weights after one AdamW
    and one Adafactor step within 12a's bound (``mesh_models``); (13b)
    llama3.2-1b at full width in bfloat16 (AdamW, lr 3e-4, batch 8 x 128,
-   microbatch 2, remat): 1 warm-up and 3 steps of the step-indexed
-   pipeline, each loss within 1e-2 relative of the one-process trainer's
+   microbatch 2, remat): 1 warm-up and 1 timed step of the step-indexed
+   pipeline (cut from 3 timed for phase 14, printed as ``reduced``), each
+   loss within 3e-4 relative of the one-process trainer's
    from the same seeded weights on the same batches (``mesh_reference``,
    run first), with step ms, the collectives' ms and bytes by kind, tokens/s
    and each rank's peak memory beside the state the sharding rules give it
@@ -146,6 +147,26 @@ Phases, each of which fails the run when its check fails:
    step 7 and resumed ends within 1e-4 of the uninterrupted run, and the
    one-process trainer resumed from its step-5 checkpoint takes step 5 at
    the mesh run's loss (``mesh_resume``).
+14. LM serving on a (data, model) mesh of 2 ranks sharing the card over
+   gloo, in serve mode (``repro_torch.models.mesh_check.chip_rank``, one
+   spawn, the meshes (2, 1) and (1, 2) in turn): (14a) the 10 smoke
+   architectures in float32, TF32 off: prefill and 6 teacher-forced decode
+   steps within 1e-4 of the largest |logit| of the one-process decode, the
+   gathered cache within that of the one-process cache, and no collective
+   on a weight (``mesh_serve_models``); (14b) llama3.2-1b at full width in
+   bfloat16 at (1, 2), drawn a weight at a time in the serve layout: a
+   64-token prompt at B = 4 and 16 decode steps teacher-forced with the
+   one-process run's tokens (``mesh_serve_reference``, run here first),
+   each step's logits within 3e-2 of the largest |logit| of the one-process
+   run's, step ms (p50), one counted step in the serve layout (no
+   collective on a weight) and one in the train layout with the
+   collectives' bytes by kind and axis, each equal in bytes and calls to
+   what ``launch/dryrun.py``'s meta pass counts, each rank's peak memory
+   beside ``launch.dryrun.analytic_memory`` of the same shape and mesh,
+   and none of the six kernels launched (``mesh_serve_full``); (14c) the
+   smoke llama through ``launch/serve.py --decode --smoke --devices 2
+   --backend gloo`` prints the one-process run's sample token ids
+   (``mesh_serve_cli``).
 
 The second-to-last line is the ``kernels`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  ``--n`` / ``--queries`` cut the data for a
@@ -159,6 +180,7 @@ import argparse
 import collections
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -1989,6 +2011,10 @@ MESH_GNORM_TOL = 3e-3              # 13b: each grad_norm, relative: sound 8.3e-4
 MESH_INIT_SLACK_GB = 0.1           # 13b: a rank's peak while drawing the weights over
                                    # its blocks, beyond the largest weight's draw
 MESH_RESUME_TOL = 1e-4             # 13c: tests/test_ft.py's bound
+# 13b's steps a layout: 1 warm-up and 1 timed, cut from mesh_check.FULL's 4
+# (1 and 3) to make room for phase 14, since the script ran 879.7 s with
+# them (PERF.md); each gloo step takes 9-15 s
+MESH_FULL_STEPS = 2
 
 
 def mesh_phase(dev):
@@ -1999,7 +2025,7 @@ def mesh_phase(dev):
     one-process ones; (13b) llama3.2-1b at full width in bfloat16 (AdamW,
     lr 3e-4, batch 8 x 128, microbatch 2, remat), the weights drawn a
     weight at a time (a rank's peak within its blocks and the largest
-    weight's draw), 1 warm-up and 3 steps of the step-indexed pipeline,
+    weight's draw), 1 warm-up and 1 timed step of the step-indexed pipeline,
     each loss and grad_norm against the one-process trainer's from the
     same seeded weights on the same batches (run here first);
     (13c) the smoke llama through ``launch/train.py --devices 2 --backend
@@ -2014,6 +2040,10 @@ def mesh_phase(dev):
     from repro_torch.training import mesh_check
 
     BUILD.mkdir(exist_ok=True)
+    log(json.dumps({"reduced": {"mesh_full_steps": MESH_FULL_STEPS,
+                                "from": mesh_check.FULL["steps"],
+                                "why": "room for phase 14: the script ran 879.7 s with "
+                                       "13b's 4 steps a layout"}}))
     t0 = time.perf_counter()
     cfg = C.get_config(mesh_check.FULL_ARCH)
     full = mesh_check.FULL
@@ -2024,7 +2054,7 @@ def mesh_phase(dev):
     step = make_train_step(api.tree_loss, opt, microbatch=cfg.microbatch)
     pipe = TokenPipeline(cfg.vocab, full["batch"], full["seq"], seed=1)
     ref_losses, ref_gnorms, ref_ms = [], [], []
-    for i in range(full["steps"]):
+    for i in range(MESH_FULL_STEPS):
         t1 = time.perf_counter()
         state, m = step(state, _train_batch(pipe.batch_at(i), dev))
         ref_losses.append(float(m["loss"]))
@@ -2040,7 +2070,8 @@ def mesh_phase(dev):
         t0 = time.perf_counter()
         out = BUILD / f"mesh_{shape[0]}x{shape[1]}.json"
         out.unlink(missing_ok=True)
-        spawn(mesh_check.chip_rank, 2, args=(shape, str(out), tuple(REPLACES)),
+        spawn(mesh_check.chip_rank, 2, args=(shape, str(out), tuple(REPLACES),
+                                             MESH_FULL_STEPS),
               device="cuda", backend="gloo", store=BUILD / "mesh_store")
         res = json.loads(out.read_text())
         log(json.dumps({"mesh_models": {"mesh": list(shape), "errors": res["smoke"],
@@ -2096,6 +2127,85 @@ def mesh_phase(dev):
     check(one["rc"] == 0 and one["restored"] and "losses" in res
           and abs(one["loss"] - res["losses"][train_check.RESUME_STEP]) < MESH_RESUME_TOL,
           f"13c: the one-process trainer from the mesh's step-5 checkpoint: {one}")
+
+
+# phase 14: LM serving on a (data, model) mesh of ranks sharing the card
+SERVE_SHAPES = ((2, 1), (1, 2))    # 14b runs on the last
+SERVE_SMOKE_TOL = 1e-4             # 14a: logits and cache, mesh against one process
+SERVE_FULL_TOL = 3e-2              # 14b: each step's logits in bfloat16, of the largest
+                                   # |logit| (11b's bfloat16 bound; PERF.md, stated
+                                   # before the first run)
+
+
+def _sample_ids(out: str) -> str:
+    return next(line for line in out.splitlines() if line.startswith("sample token ids:"))
+
+
+def mesh_serve_phase(dev):
+    """Phase 14: serving on a mesh of 2 ranks that share the card over gloo
+    (the module docstring): (14a) the smoke architectures against the
+    one-process decode, (14b) llama3.2-1b at full width against the
+    one-process run made here first, (14c) ``launch/serve.py --decode
+    --devices 2`` against one process."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import mesh_check
+
+    BUILD.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    ref = mesh_check.full_reference(dev)
+    ref_path = BUILD / "mesh_serve_ref.npz"
+    np.savez(ref_path, **{k: v for k, v in ref.items() if k != "step_ms"})
+    log(json.dumps({"mesh_serve_reference": {
+        "arch": mesh_check.FULL_ARCH, **{k: v for k, v in mesh_check.FULL.items()},
+        "step_ms": ref["step_ms"], "step_ms_p50": float(np.median(ref["step_ms"])),
+        "s": time.perf_counter() - t0}}))
+
+    t0 = time.perf_counter()
+    out = BUILD / "mesh_serve.json"
+    out.unlink(missing_ok=True)
+    spawn(mesh_check.chip_rank, 2, args=(SERVE_SHAPES, str(ref_path), str(out),
+                                         tuple(REPLACES)),
+          device="cuda", backend="gloo", store=BUILD / "mesh_serve_store")
+    res = json.loads(out.read_text())
+    for key, cases in res["smoke"].items():
+        log(json.dumps({"mesh_serve_models": {
+            "mesh": key, "errors": {a: {k: c[k] for k in ("logits", "cache", "weight_moves")}
+                                    for a, c in cases.items()},
+            "bound": SERVE_SMOKE_TOL, "s": res["smoke_s"][key]}}))
+        bad = {a: c for a, c in cases.items()
+               if max(c["logits"], c["cache"]) >= SERVE_SMOKE_TOL or c["weight_moves"]}
+        check(not bad, f"14a: serving at {key} against one process: {bad}")
+    f = res["full"]
+    log(json.dumps({"mesh_serve_full": {**f, "bound": SERVE_FULL_TOL,
+                                        "launches": res["launches"],
+                                        "s": time.perf_counter() - t0}}))
+    check(len(f["errors"]) == mesh_check.FULL["steps"] + 1 and all(np.isfinite(f["errors"])),
+          f"14b: {len(f['errors'])} logits errors: {f['errors']}")
+    check(max(f["errors"]) < SERVE_FULL_TOL,
+          f"14b: full-width logits on the mesh against one process: {f['errors']}")
+    check(f["serve_step"]["weight_moves"]["calls"] == 0,
+          f"14b: a serve-layout step moved weights: {f['serve_step']['weight_moves']}")
+    check(f["train_step"]["weight_moves"]["calls"] > 0,
+          "14b: the train-layout step moved no weight (its use sites gather them)")
+    for layout in ("serve_step", "train_step"):
+        got, meta = f[layout], f[layout]["meta_pass"]
+        check((got["collective_bytes"], got["calls"]) == (meta["bytes"], meta["calls"]),
+              f"14b: the {layout}'s collectives {got['collective_bytes']} B in "
+              f"{got['calls']} calls, the dry run's meta pass {meta}")
+    check(not any(res["launches"].values()),
+          f"14: the serving mesh path launched a search kernel: {res['launches']}")
+
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--decode", "--smoke"]
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    runs = [subprocess.run(cmd + extra, capture_output=True, text=True, timeout=300, env=env)
+            for extra in ([], ["--devices", "2", "--backend", "gloo"])]
+    for r in runs:
+        check(r.returncode == 0, f"14c: launch/serve.py --decode: {r.stderr[-2000:]}")
+    one, mesh = (_sample_ids(r.stdout) for r in runs)
+    log(json.dumps({"mesh_serve_cli": {"one_process": one, "devices_2": mesh,
+                                       "s": time.perf_counter() - t0}}))
+    check(one == mesh, f"14c: --devices 2 printed {mesh!r}, one process {one!r}")
 
 
 def main(argv=None) -> int:
@@ -2204,6 +2314,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     mesh_phase(dev)
     log(json.dumps({"mesh_phase_s": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    mesh_serve_phase(dev)
+    log(json.dumps({"mesh_serve_phase_s": time.perf_counter() - t0}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -20,6 +20,11 @@ an NCCL group is never swapped for gloo.
 the collectives while it is on (``reset_stats``), in all and by kind, axis
 and size (``STATS["by"]``: calls, bytes, seconds); off, it costs a flag
 test a call.
+
+A :class:`ShapeGroup` is a group of ranks with no processes behind it
+(``launch.mesh.ShapeMesh``, the dry run's one rank of a production mesh):
+a collective over it gives an output on the meta device of the shape it
+would have, and is counted like any other.
 """
 from __future__ import annotations
 
@@ -44,6 +49,15 @@ _AXIS = {}
 
 def name_group(group, axis: str):
     _AXIS[id(group)] = axis
+
+
+class ShapeGroup:
+    """``size`` ranks along ``axis`` with no processes: collectives over it
+    give meta outputs of the right shape (the module docstring)."""
+
+    def __init__(self, size: int, axis: str):
+        self.size = size
+        name_group(self, axis)
 
 
 def reset_stats(on: bool = True):
@@ -77,7 +91,7 @@ def _span(x, kind: str, group):
 
 
 def _size(group) -> int:
-    return dist.get_world_size(group)
+    return group.size if isinstance(group, ShapeGroup) else dist.get_world_size(group)
 
 
 def _through_host(x, group) -> bool:
@@ -137,6 +151,10 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if n == 1:
         return x
     src = x.movedim(dim, 0).contiguous()
+    if isinstance(group, ShapeGroup):
+        with _span(x, "all_gather", group):
+            out = src.new_empty((n * src.shape[0], *src.shape[1:]), device="meta")
+        return out.movedim(0, dim)
     host = _through_host(x, group)
     with _span(x, "all_gather", group):
         if host:
@@ -158,6 +176,10 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if n == 1:
         return x
     src = x.movedim(dim, 0).contiguous()
+    if isinstance(group, ShapeGroup):
+        with _span(x, "reduce_scatter", group):
+            out = src.new_empty((src.shape[0] // n, *src.shape[1:]), device="meta")
+        return out.movedim(0, dim)
     host = _through_host(x, group)
     with _span(x, "reduce_scatter", group):
         if host:
@@ -177,6 +199,9 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """The sum (or ``op="max"``) of every rank's ``x``, as a new tensor."""
     if _size(group) == 1:
         return x
+    if isinstance(group, ShapeGroup):
+        with _span(x, "all_reduce", group):
+            return x.new_empty(x.shape, device="meta")
     host = _through_host(x, group)
     with _span(x, "all_reduce", group):
         out = _host_copy(x.detach()) if host else x.detach().clone()

@@ -12,6 +12,10 @@ is a collective: every rank calls it with the same arguments.
 :func:`production_mesh_shape` gives the shapes the reference's dry run
 lowers for (16 x 16, or 2 x 16 x 16 over two pods) as :class:`MeshShape`:
 shapes only, with no ranks, which is all the sharding rules read.
+:class:`ShapeMesh` is one rank of such a shape with no processes behind
+it: its groups are ``collectives.ShapeGroup`` groups and its device the meta
+device, so model code runs one rank's step on it in shapes only
+(``launch/dryrun.py``).
 
 :func:`spawn` starts the ranks of a mesh in processes of their own
 (``torch.multiprocessing``, start method ``spawn``: CUDA cannot fork),
@@ -36,6 +40,7 @@ from repro_torch import resolve_device
 # (``chip_smoke.py``'s bounds read them)
 PEAK_FLOPS_BF16 = 989e12       # dense bfloat16 tensor-core operations/s
 HBM_BW = 3.35e12               # B/s of device memory
+HBM_BYTES = 80e9               # bytes of device memory (the datasheet's 80 GB)
 
 
 class MeshShape(NamedTuple):
@@ -118,6 +123,26 @@ class Mesh:
     def __repr__(self):
         return (f"Mesh({dict(zip(self.axis_names, self.shape))}, rank {self.rank}, "
                 f"{self.backend}, {self.device})")
+
+
+class ShapeMesh(Mesh):
+    """Rank 0 of a mesh of ``shape`` with no processes behind it: what a
+    live :class:`Mesh` gives model code (sizes, the rank's coordinates,
+    groups), with ``collectives.ShapeGroup`` groups and the meta device."""
+
+    def __init__(self, shape, axes=None):
+        from repro_torch.distributed.collectives import ShapeGroup
+
+        self.shape = tuple(shape)
+        self.axis_names = tuple(axes) if axes else axis_names(len(self.shape))
+        self.device, self.backend = torch.device("meta"), "shape"
+        self.device_mesh = None
+        self.model_size = self.shape[-1]
+        self.dp_size = math.prod(self.shape) // self.model_size
+        self.rank = self.model_rank = self.dp_rank = 0
+        self.model_group = ShapeGroup(self.model_size, "model")
+        self.dp_group = ShapeGroup(self.dp_size, "data")
+        self.world_group = ShapeGroup(math.prod(self.shape), "all")
 
 
 def make_mesh(shape, axes=None, device="cuda") -> Mesh:

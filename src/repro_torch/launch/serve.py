@@ -19,13 +19,27 @@ LM prefill + decode smoke path on ``repro_torch.models`` instead:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --decode \
       [--arch llama3.2-1b] [--smoke] [--batch 4] [--prompt-len 64] [--gen 32] \
-      [--temperature 0] [--device cuda|cpu]
+      [--temperature 0] [--device cuda|cpu] \
+      [--devices N [--mesh DxM | PxDxM] [--backend nccl|gloo]]
 
 with weights from the model's seeded initialiser, a seeded prompt (frames for
 whisper, patch embeddings before the tokens for llava), greedy decoding or,
 with ``--temperature``, draws from a seeded ``torch.Generator``.  The cache
 holds the patch positions too (the reference's does not, so its llava
 steps run past the cache); a step past the cache raises.
+
+``--devices N`` serves on a mesh of N ranks (``--mesh``, default ``1xN``;
+the reference's flag sets N fake host devices and builds no mesh), each a
+process of its own (``launch.mesh.spawn``) as ``launch/train.py`` runs
+them: NCCL one card a rank on the card, ``--backend gloo`` for ranks that
+share the cards, gloo ranks with ``--device cpu``.  Every rank draws the
+weights from the seed a weight at a time in the serve layout
+(``models.convert.init_sharded(mode="serve")``, ``axes.set_mode("serve")``),
+takes its rows of the global prompt, prefills its blocks of the cache and
+decodes; rank 0 prints the lines one process prints (the global batch's
+times, its own first row's tokens, which are the global batch's first).
+Greedy decoding gives the one-process tokens; ``--temperature`` draws
+from each rank's generator over its rows.  ``--devices 0`` is one process.
 """
 import argparse
 import json
@@ -262,63 +276,112 @@ def _decode_main(argv):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--devices", type=int, default=0, help="ranks of the mesh")
+    ap.add_argument("--mesh", default="", help="e.g. 1x2; default: 1 x devices")
+    ap.add_argument("--backend", default=None,
+                    help="nccl (the card's default: one card a rank) or gloo "
+                         "(ranks may share a card; the CPU's)")
     args = ap.parse_args(argv)
+    if args.devices or args.mesh:
+        return _decode_mesh_main(args)
+    from repro_torch import resolve_device
 
+    return _decode(args, resolve_device(args.device))
+
+
+def _decode_mesh_main(args):
+    import math
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from repro_torch.launch.mesh import parse_mesh, spawn
+
+    shape = parse_mesh(args.mesh) if args.mesh else (1, args.devices)
+    world = math.prod(shape)
+    if args.devices and args.devices != world:
+        raise ValueError(f"--mesh {args.mesh} has {world} ranks, --devices {args.devices}")
+    with tempfile.TemporaryDirectory() as d:
+        spawn(_decode_rank, world, args=(args, shape), device=args.device,
+              backend=args.backend, store=Path(d) / f"store_{os.getpid()}")
+    return 0
+
+
+def _decode_rank(rank, world, dev, args, shape):
+    from repro_torch.launch.mesh import make_mesh
+
+    _decode(args, dev, make_mesh(shape, device=dev))
+
+
+def _decode(args, dev, mesh=None):
+    """The prefill + decode smoke on ``dev``: one process, or this rank of
+    ``mesh`` (a live ``launch.mesh.Mesh``; rank 0 prints)."""
+    import contextlib
     import time
 
     import numpy as np
     import torch
 
     from repro_torch import configs as C
-    from repro_torch import resolve_device
+    from repro_torch.distributed.axes import set_mode, use_mesh
     from repro_torch.models import get_model
+    from repro_torch.models.convert import init_sharded
 
-    dev = resolve_device(args.device)
     cfg = C.get_smoke(args.arch) if args.smoke else C.get_config(args.arch)
     api = get_model(cfg, dev)
-    params = api.init(api.generator(0))
     rng = np.random.default_rng(0)
-    t = lambda a, dtype: torch.from_numpy(a).to(dev, dtype)
 
     kv_len = args.prompt_len + args.gen
     if cfg.is_encdec:
-        batch = dict(frames=t(rng.standard_normal(
-            (args.batch, args.prompt_len, cfg.d_model)), torch.float32))
+        batch = dict(frames=rng.standard_normal(
+            (args.batch, args.prompt_len, cfg.d_model)).astype(np.float32))
     elif cfg.frontend == "vision":
         batch = dict(
-            prefix_embeds=t(rng.standard_normal(
-                (args.batch, cfg.frontend_tokens, cfg.d_model)), torch.float32),
-            tokens=t(rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)), torch.long))
+            prefix_embeds=rng.standard_normal(
+                (args.batch, cfg.frontend_tokens, cfg.d_model)).astype(np.float32),
+            tokens=rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)))
         kv_len += cfg.frontend_tokens
     else:
-        batch = dict(tokens=t(rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
-                              torch.long))
+        batch = dict(tokens=rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)))
+    if mesh is None:
+        params = api.init(api.generator(0))
+        scope = contextlib.nullcontext()
+    else:
+        from repro_torch.models.mesh_check import rows
+
+        set_mode("serve")
+        params = init_sharded(api, api.generator(0), mesh, mode="serve")
+        batch = rows(batch, mesh)
+        scope = use_mesh(mesh)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
 
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
-    t0 = time.perf_counter()
-    logits, cache = api.prefill(params, batch, kv_len)
-    sync()
-    t_prefill = time.perf_counter() - t0
+    with scope:
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, batch, kv_len)
+        sync()
+        t_prefill = time.perf_counter() - t0
 
-    gen = torch.Generator(dev).manual_seed(1)
-    tok = logits.argmax(-1)
-    out_tokens = [tok]
-    t0 = time.perf_counter()
-    for _ in range(args.gen - 1):
-        logits, cache = api.decode(params, cache, tok)
-        if args.temperature > 0:
-            probs = torch.softmax(logits.float() / args.temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
-        else:
-            tok = logits.argmax(-1)
-        out_tokens.append(tok)
-    toks = torch.stack(out_tokens, 1).cpu().numpy()
-    t_decode = time.perf_counter() - t0
+        gen = torch.Generator(dev).manual_seed(1)
+        tok = logits.argmax(-1)
+        out_tokens = [tok]
+        t0 = time.perf_counter()
+        for _ in range(args.gen - 1):
+            logits, cache = api.decode(params, cache, tok)
+            if args.temperature > 0:
+                probs = torch.softmax(logits.float() / args.temperature, dim=-1)
+                tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            else:
+                tok = logits.argmax(-1)
+            out_tokens.append(tok)
+        toks = torch.stack(out_tokens, 1).cpu().numpy()
+        t_decode = time.perf_counter() - t0
 
-    print(f"prefill: {t_prefill*1e3:.1f} ms for {args.batch}x{args.prompt_len}")
-    print(f"decode:  {t_decode*1e3:.1f} ms for {args.gen-1} steps "
-          f"({(args.gen-1)*args.batch/max(t_decode,1e-9):.0f} tok/s)")
-    print("sample token ids:", toks[0, :12].tolist())
+    say(f"prefill: {t_prefill*1e3:.1f} ms for {args.batch}x{args.prompt_len}")
+    say(f"decode:  {t_decode*1e3:.1f} ms for {args.gen-1} steps "
+        f"({(args.gen-1)*args.batch/max(t_decode,1e-9):.0f} tok/s)")
+    say("sample token ids:", toks[0, :12].tolist())
     return 0
 
 

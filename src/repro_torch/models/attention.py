@@ -9,7 +9,9 @@ reference asks XLA for float32 products of bfloat16 operands
 
 ``merge_partials`` is a ``pmax``/``psum`` over a mesh axis in the reference;
 here it reduces over a leading axis of stacked partials, as
-``distributed/comm.py::LocalShards`` stacks shards.
+``distributed/comm.py::LocalShards`` stacks shards, and
+:func:`merge_partials_over` is the reference's form over the ranks of a
+process group (a decode cache's sequence blocks over ``model``).
 """
 from __future__ import annotations
 
@@ -50,19 +52,28 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset=0,
     valid = (torch.ones((nk, kc), dtype=torch.bool, device=dev) if kv_len is None
              else kv_pos < kv_len)
 
+    # a causal kv block wholly after a q block's last position adds exactly
+    # nothing (its scores are masked, so p = 0 and alpha = 1): skipped; a
+    # block every position of which is visible needs no mask
+    static = isinstance(q_offset, int) and (kv_len is None or isinstance(kv_len, int))
     outs = []
     for qi in range(nq):
-        qb = qr[:, qi]
-        q_pos = q_offset + qi * qc + torch.arange(qc, device=dev)
+        qb = qr[:, qi].float()
+        first = q_offset + qi * qc
+        q_pos = first + torch.arange(qc, device=dev)
         m = torch.full((b, kk, g, qc), NEG, dtype=torch.float32, device=dev)
         l = torch.zeros((b, kk, g, qc), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, kk, g, qc, dh), dtype=torch.float32, device=dev)
         for ki in range(nk):
+            if static and causal and ki * kc > first + qc - 1:
+                break
             sc = _gqa_scores(qb, kr[:, ki])                      # (B,K,G,qc,kc)
-            mask = valid[ki][None, :]
-            if causal:
-                mask = mask & (kv_pos[ki][None, :] <= q_pos[:, None])
-            sc = torch.where(mask[None, None, None], sc, NEG)
+            if not (static and (ki + 1) * kc <= (s if kv_len is None else kv_len)
+                    and (not causal or (ki + 1) * kc - 1 <= first)):
+                mask = valid[ki][None, :]
+                if causal:
+                    mask = mask & (kv_pos[ki][None, :] <= q_pos[:, None])
+                sc = torch.where(mask[None, None, None], sc, NEG)
             m_new = torch.maximum(m, sc.amax(-1))
             p = torch.exp(sc - m_new[..., None])
             alpha = torch.exp(m - m_new)
@@ -106,3 +117,16 @@ def merge_partials(o, m, l, dim: int = 0):
     o_g = (o * alpha[..., None]).sum(dim)
     l_g = (l * alpha).sum(dim)
     return o_g / torch.clamp(l_g, min=1e-30)[..., None]
+
+
+def merge_partials_over(o, m, l, group):
+    """LSE merge of this rank's decode partial with those of the other
+    ranks of ``group`` (the reference's ``merge_partials`` over an axis
+    name): an all-reduce max of ``m``, then one all-reduce sum of the
+    rescaled ``o`` and ``l`` together.  o (..., dh) f32, m and l (...)."""
+    from repro_torch.distributed import collectives as coll
+
+    m_g = coll.all_reduce(m, group, op="max")
+    alpha = torch.exp(m - m_g)
+    ol = coll.all_reduce(torch.cat([o * alpha[..., None], (l * alpha)[..., None]], -1), group)
+    return ol[..., :-1] / torch.clamp(ol[..., -1], min=1e-30)[..., None]

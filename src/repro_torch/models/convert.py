@@ -20,9 +20,13 @@ set) both ways.
 
 On a mesh of ranks the weights are cut to each rank's block of the
 sharding rules' layout (:func:`shard_params`; :func:`from_jax_params` with
-``mesh=`` carries the reference's arrays in so), and a sharded state is
-gathered a leaf at a time for a checkpoint (:func:`gather_train_state`);
-the layout on disk is the global one either way.
+``mesh=`` carries the reference's arrays in so), the train layout or, with
+``mode="serve"``, the serve layout; a sharded state is gathered a leaf at
+a time for a checkpoint (:func:`gather_train_state`); the layout on disk
+is the global one either way.  A decode cache is cut to the rules' cache
+layout by :func:`shard_cache` (and put back together by
+:func:`gather_cache`); :func:`cache_tree` gives its global shapes in the
+reference's layout, the tree the rules read.
 """
 from __future__ import annotations
 
@@ -134,19 +138,21 @@ def cache_to_numpy(cfg: ModelConfig, cache: dict) -> dict:
 
 
 @torch.no_grad()
-def shard_params(cfg: ModelConfig, params: Params, mesh, abstract: Params | None = None
-                 ) -> Params:
+def shard_params(cfg: ModelConfig, params: Params, mesh, abstract: Params | None = None,
+                 mode: str = "train") -> Params:
     """Cut every weight of ``params`` (the global arrays) to this rank's
-    block of the rules' train layout on ``mesh``, in place, a leaf at a
-    time: each parameter keeps its object and holds its block, with its
-    spec in ``mesh_spec`` (a ``Stacked`` group's tensors the spec without
-    the group axis, which the rules never split).  With ``abstract`` (the
-    model's ``abstract_params()``: the global shapes) a weight that is
-    already its block is left as it is.  Returns ``params``."""
+    block of the rules' ``mode`` layout on ``mesh`` (train: FSDP over the
+    data axes and TP/EP over ``model``; serve: TP/EP only, experts over the
+    data axes), in place, a leaf at a time: each parameter keeps its
+    object and holds its block, with its spec in ``mesh_spec`` (a
+    ``Stacked`` group's tensors the spec without the group axis, which the
+    rules never split).  With ``abstract`` (the model's
+    ``abstract_params()``: the global shapes) a weight that is already its
+    block is left as it is.  Returns ``params``."""
     tree = param_tree(cfg, params)
     shapes = tree if abstract is None else param_tree(cfg, abstract)
     for leaf, full, spec in zip(leaves(tree), leaves(shapes),
-                                leaves(sh.param_specs(shapes, mesh))):
+                                leaves(sh.param_specs(shapes, mesh, mode))):
         if isinstance(leaf, Stacked):
             if spec[0] is not None:
                 raise ValueError(f"the rules split a stacked group axis: {spec}")
@@ -160,9 +166,9 @@ def shard_params(cfg: ModelConfig, params: Params, mesh, abstract: Params | None
 
 
 @torch.no_grad()
-def init_sharded(api, generator, mesh) -> Params:
-    """``shard_params(cfg, api.init(generator), mesh)``, drawn a weight at a
-    time: each draw of ``uinit`` is cut to this rank's block as it is made
+def init_sharded(api, generator, mesh, mode: str = "train") -> Params:
+    """``shard_params(cfg, api.init(generator), mesh, mode=mode)``, drawn a
+    weight at a time: each draw of ``uinit`` is cut to this rank's block as it is made
     and the global draw freed before the next, so a rank holds its blocks
     and at most one global weight (the generator draws every weight in
     full, so the values are the one-process ones).  Works on anything with
@@ -180,7 +186,7 @@ def init_sharded(api, generator, mesh) -> Params:
         abstract = api.abstract_params()
     tree = param_tree(cfg, abstract)
     spec_of = {}                        # draw number -> the spec of its block
-    for leaf, spec in zip(leaves(tree), leaves(sh.param_specs(tree, mesh))):
+    for leaf, spec in zip(leaves(tree), leaves(sh.param_specs(tree, mesh, mode))):
         if isinstance(leaf, Stacked):
             spec = spec[1:]
         for t in (leaf if isinstance(leaf, Stacked) else (leaf,)):
@@ -194,7 +200,110 @@ def init_sharded(api, generator, mesh) -> Params:
 
     with each_draw(cut):
         params = api.init(generator)
-    return shard_params(cfg, params, mesh, abstract)
+    return shard_params(cfg, params, mesh, abstract, mode)
+
+
+def cache_tree(cfg: ModelConfig, cache: dict) -> dict:
+    """The global shapes of a port decode cache (tensors, or their shapes
+    on the meta device) as the reference's cache tree on the meta device:
+    a decoder's layers stacked over the groups (``blocks/pos{i}/k`` (G, B,
+    S, K, dh), ...), whisper's as they are; ``pos`` an int32 scalar.  The
+    tree ``sharding.cache_specs`` reads."""
+    meta = lambda shape, dtype: torch.empty(tuple(shape), dtype=dtype, device="meta")
+    out = dict(pos=meta((), torch.int32))
+    if cfg.is_encdec:
+        out.update({k: meta(cache[k].shape, cache[k].dtype)
+                    for k in ("self_k", "self_v", "cross_k", "cross_v")})
+        return out
+    layers = cache["layers"]
+    out["blocks"] = {f"pos{i}": {k: meta((cfg.n_groups, *t.shape), t.dtype)
+                                 for k, t in layers[i].items()}
+                     for i in range(cfg.period)}
+    return out
+
+
+def _cache_items(cfg: ModelConfig, cache: dict, specs: dict):
+    """(container, key, tensor, its spec) of each array of a port decode
+    cache, under the reference tree's specs (a layer's spec without the
+    group axis)."""
+    if cfg.is_encdec:
+        for k in ("self_k", "self_v", "cross_k", "cross_v"):
+            yield cache, k, cache[k], specs[k]
+        return
+    for l, layer in enumerate(cache["layers"]):
+        for k, t in layer.items():
+            spec = specs["blocks"][f"pos{l % cfg.period}"][k]
+            if spec[0] is not None:
+                raise ValueError(f"the rules split a cache's group axis: {spec}")
+            yield layer, k, t, spec[1:]
+
+
+def live_cache_specs(cfg: ModelConfig, cache: dict, mesh) -> dict:
+    """The specs of a live cache's arrays, in :func:`cache_tree`'s keys:
+    the rules' ``cache_specs``, except that whisper's self-attention window
+    lies as a decoder's K/V does (batch over the data axes, sequence over
+    ``model``).  The rules match K/V by the paths ``/k``, ``/v`` and
+    ``cross``, which ``self_k`` and ``self_v`` are not, so they hold the
+    self window whole on every rank, rows included, while a rank of the
+    live mesh computes only its rows (the dry run's ``analytic_memory``
+    keeps the rules' count)."""
+    tree = cache_tree(cfg, cache)
+    if not cfg.is_encdec:
+        return sh.cache_specs(tree, mesh)
+    tree["self"] = {"k": tree.pop("self_k"), "v": tree.pop("self_v")}
+    specs = sh.cache_specs(tree, mesh)
+    self_specs = specs.pop("self")
+    specs.update(self_k=self_specs["k"], self_v=self_specs["v"])
+    return specs
+
+
+@torch.no_grad()
+def shard_cache(cfg: ModelConfig, cache: dict, mesh, device=None) -> dict:
+    """A decode cache (the global arrays; ``pos`` a host integer) as this
+    rank's blocks of the rules' cache layout on ``mesh``
+    (:func:`live_cache_specs`: K/V batch over the data axes and sequence
+    over ``model``, SSM states heads over ``model``, the conv tail channels
+    over ``model``; a dimension stays whole where its axis does not divide
+    it), each block with its spec in ``mesh_spec``, on ``device`` (default
+    the array's).  A cache on the meta device gives zeroed blocks
+    allocated at their own size (on the meta device when ``device`` is
+    too): the global cache is never made.  Returns a new cache dict."""
+    specs = live_cache_specs(cfg, cache, mesh)
+    out = dict(cache)
+    if not cfg.is_encdec:
+        out["layers"] = [dict(layer) for layer in cache["layers"]]
+    for holder, k, t, spec in _cache_items(cfg, out, specs):
+        dev = torch.device(device) if device is not None else t.device
+        if t.device.type == "meta":
+            block = torch.zeros(tuple(sh.shard(t, spec, mesh).shape), dtype=t.dtype,
+                                device=dev)
+        else:
+            block = sh.shard(t, spec, mesh).to(dev).clone()
+        block.mesh_spec = tuple(spec)
+        holder[k] = block
+    return out
+
+
+@torch.no_grad()
+def gather_cache(cfg: ModelConfig, cache: dict, mesh) -> dict:
+    """A cache of :func:`shard_cache`'s blocks on a live mesh put back
+    together (every rank gets the global arrays)."""
+    out = dict(cache)
+    if not cfg.is_encdec:
+        out["layers"] = [dict(layer) for layer in cache["layers"]]
+    for holder, k, t, spec in _cache_items(cfg, out, _spec_tree(cfg, out)):
+        holder[k] = sh.gather(t, spec, mesh)
+    return out
+
+
+def _spec_tree(cfg: ModelConfig, cache: dict) -> dict:
+    """The specs a sharded cache's blocks carry, in the reference tree's
+    keys (each layer's with the group axis put back)."""
+    if cfg.is_encdec:
+        return {k: cache[k].mesh_spec for k in ("self_k", "self_v", "cross_k", "cross_v")}
+    return {"blocks": {f"pos{i}": {k: (None, *t.mesh_spec)
+                                   for k, t in cache["layers"][i].items()}
+                       for i in range(cfg.period)}}
 
 
 def _storage(t: torch.Tensor) -> int:

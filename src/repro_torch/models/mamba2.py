@@ -8,13 +8,21 @@ Decode is the O(1) recurrence.
 
 Layout follows mamba2: in_proj -> [z | x | B | C | dt], causal depthwise conv
 over (x|B|C), scalar A per head, head-wise D skip, gated RMSNorm out.
+
+On a live mesh a decode cache holds this rank's block of the conv
+channels and of the SSM heads (``models.convert.shard_cache``): a decode
+step runs the conv over its channels and the recurrence over its heads
+and all-gathers each result over ``model``.  A conv weight stored split
+over ``model`` (serve mode) runs a prompt's conv over its channels the
+same way.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.axes import linear, weight_use
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.axes import block_of, linear, live, weight_use
 from repro_torch.models.common import ModelConfig, Params, ones, rms_norm, uinit, zeros
 
 
@@ -89,26 +97,46 @@ def mamba2_mixer(x, p, cfg: ModelConfig, conv_state=None, ssm_state=None,
 
     conv_in = torch.cat([xin, b, c], dim=-1)                     # (B,T,di+2s)
     conv_w = weight_use(p.conv_w, x, None, None)
+    conv_b = p.conv_b
+    # the channels this rank runs: its cache block, or its block of a conv
+    # weight used as stored
+    ci, cn = (block_of(conv_state, 2) if decode
+              else block_of(p.conv_w, 1) if conv_w.shape[-1] < conv_in.shape[-1] else (0, 1))
+    if cn > 1:
+        conv_in = coll.block(conv_in, 2, ci, cn)
+        conv_b = coll.block(conv_b, 0, ci, cn)
+        if conv_w.shape[-1] != conv_in.shape[-1]:
+            conv_w = coll.block(conv_w, 1, ci, cn)
     if decode:
         window = torch.cat([conv_state, conv_in], dim=1)         # (B,k,di+2s)
         new_conv_state = window[:, 1:]
-        conv = torch.einsum("bkp,kp->bp", window, conv_w)[:, None] + p.conv_b
+        conv = torch.einsum("bkp,kp->bp", window, conv_w)[:, None] + conv_b
     else:
         pad = F.pad(conv_in, (0, 0, k - 1, 0))
         windows = torch.stack([pad[:, i: i + t] for i in range(k)], dim=2)  # (B,T,k,P)
-        conv = torch.einsum("btkp,kp->btp", windows, conv_w) + p.conv_b
+        conv = torch.einsum("btkp,kp->btp", windows, conv_w) + conv_b
         new_conv_state = pad[:, -(k - 1):] if k > 1 else None
     conv = F.silu(conv.float()).to(x.dtype)
+    if cn > 1:
+        conv = coll.all_gather(conv, 2, live().model_group)
     xc, bc, cc = torch.split(conv, [di, s, s], dim=-1)
     xh = xc.reshape(bsz, -1, heads, dh)
 
     if decode:
+        # the heads of this rank's SSM state
+        hi, hn = block_of(ssm_state, 1)
         a = -torch.exp(p.a_log.float())
-        dec = torch.exp(dt[:, 0] * a)                            # (B,H)
-        dbx = torch.einsum("bs,bh,bhd->bhsd", bc[:, 0].float(), dt[:, 0],
-                           xh[:, 0].float())
+        dt0, xh0 = dt[:, 0], xh[:, 0]
+        if hn > 1:
+            a = coll.block(a, 0, hi, hn)
+            dt0 = coll.block(dt0, 1, hi, hn)
+            xh0 = coll.block(xh0, 1, hi, hn)
+        dec = torch.exp(dt0 * a)                                 # (B,H)
+        dbx = torch.einsum("bs,bh,bhd->bhsd", bc[:, 0].float(), dt0, xh0.float())
         new_ssm = ssm_state * dec[..., None, None] + dbx
         y = torch.einsum("bs,bhsd->bhd", cc[:, 0].float(), new_ssm)
+        if hn > 1:
+            y = coll.all_gather(y, 1, live().model_group)
         y = y[:, None]                                           # (B,1,H,dh)
     else:
         chunk = min(cfg.ssm_chunk, t)

@@ -12,7 +12,8 @@ position-in-expert prefix sum runs within a chunk, as the reference's.
 On a live mesh a rank's rows are its chunk; the load-balance fractions
 are averaged over the data axes, so the aux loss is the global batch's.
 Weights meet their activations at the use sites of ``distributed.axes``
-(experts over ``model``: EP).
+(experts over ``model``: EP; in serve mode experts lie over the data axes,
+and each rank runs its own experts on every rank's dispatch buffer).
 """
 from __future__ import annotations
 

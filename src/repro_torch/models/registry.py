@@ -14,6 +14,12 @@ cache and the last position's logits in one pass over the prompt, where the
 reference runs the backbone twice (``lm_forward``, then
 ``tr_prefill_cache``); the final norm is per position, so slicing to the
 last position before the head gives the reference's numbers.
+
+Under a live mesh (``distributed.axes.use_mesh``) the batch a function
+takes is this rank's rows, and a cache the API makes (``init_cache``,
+``prefill``) is this rank's blocks of the rules' cache layout, allocated
+at the block's size (``convert.shard_cache``); ``abstract_cache`` gives
+the blocks' shapes.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Callable
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed.axes import live
 from repro_torch.models import convert
 from repro_torch.models import transformer as tr
 from repro_torch.models import whisper as wh
@@ -58,6 +65,17 @@ class ModelAPI:
         return self.loss(tree.module, batch)
 
 
+def _cache(cfg: ModelConfig, make, batch: int, device):
+    """``make(batch, device)``, a fresh cache of ``batch`` rows.  On a live
+    mesh ``batch`` is this rank's rows (the caller's rows are split over
+    the data axes): this rank's blocks of the cache of ``batch * dp_size``
+    rows, allocated at their size (made on the meta device and cut)."""
+    mesh = live()
+    if mesh is None:
+        return make(batch, device)
+    return convert.shard_cache(cfg, make(batch * mesh.dp_size, "meta"), mesh, device=device)
+
+
 def tr_prefill_cache(params, batch, cache, cfg: ModelConfig):
     """Populate a decode cache from a prompt in one forward pass."""
     return tr.prefill_pass(params, batch, cache, cfg)[1]
@@ -68,15 +86,17 @@ def _decoder_api(cfg: ModelConfig, dev: torch.device) -> ModelAPI:
     def prefill(params, batch, kv_len):
         """Last-position logits and a cache covering the prompt."""
         b = batch["tokens"].shape[0]
-        cache = tr.init_cache(cfg, b, kv_len, device=params.embed.device)
+        cache = _cache(cfg, lambda n, d: tr.init_cache(cfg, n, kv_len, device=d), b,
+                       params.embed.device)
         x, cache = tr.prefill_pass(params, batch, cache, cfg)
-        return x[:, -1] @ tr.lm_head(params, cfg), cache
+        return tr.logits_of(x[:, -1], params, cfg), cache
 
     return ModelAPI(
         cfg=cfg, device=dev,
         init=lambda generator=None: tr.init_params(generator or _gen(dev), cfg),
         loss=lambda params, batch: tr.lm_loss(params, batch, cfg),
-        init_cache=lambda b, s, device=dev: tr.init_cache(cfg, b, s, device=device),
+        init_cache=lambda b, s, device=dev: _cache(
+            cfg, lambda n, d: tr.init_cache(cfg, n, s, device=d), b, device),
         decode=torch.no_grad()(lambda params, cache, tokens:
                                tr.decode_step(params, cache, tokens, cfg)),
         prefill=prefill,
@@ -90,7 +110,8 @@ def _encdec_api(cfg: ModelConfig, dev: torch.device) -> ModelAPI:
         """Cross K/V from the frames, then one decode step of token 0; the
         reference ignores ``kv_len`` (the self window is the config's)."""
         frames = batch["frames"]
-        cache = wh.init_encdec_cache(params, cfg, frames.shape[0], frames.shape[1])
+        cache = _cache(cfg, lambda n, d: wh.init_encdec_cache(
+            None, cfg, n, frames.shape[1], device=d), frames.shape[0], params.embed.device)
         cache = wh.prefill_cross(params, frames, cache, cfg)
         tokens = torch.zeros((frames.shape[0],), dtype=torch.long, device=frames.device)
         return wh.encdec_decode_step(params, cache, tokens, cfg)
@@ -99,8 +120,8 @@ def _encdec_api(cfg: ModelConfig, dev: torch.device) -> ModelAPI:
         cfg=cfg, device=dev,
         init=lambda generator=None: wh.init_whisper(generator or _gen(dev), cfg),
         loss=lambda params, batch: wh.encdec_loss(params, batch, cfg),
-        init_cache=lambda b, s, device=dev: wh.init_encdec_cache(None, cfg, b, s,
-                                                                  device=device),
+        init_cache=lambda b, s, device=dev: _cache(
+            cfg, lambda n, d: wh.init_encdec_cache(None, cfg, n, s, device=d), b, device),
         decode=torch.no_grad()(lambda params, cache, tokens:
                                wh.encdec_decode_step(params, cache, tokens, cfg)),
         prefill=prefill,

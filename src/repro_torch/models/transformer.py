@@ -18,19 +18,31 @@ the weight from its storage layout and completes the product over the
 The decode cache is ``dict(pos=int, layers=[...])``: ``pos`` is a host
 integer, so a step never waits on the device to read it, and each layer
 holds ``k``/``v`` (B, S, K, dh) or ``conv``/``ssm`` states.  ``decode_step``
-writes the new token's K/V in place and returns the same cache object with
-``pos`` advanced.  A step at ``pos >= S`` raises, where the reference's
-``dynamic_update_slice`` clamps the write onto the last slot.
+writes the new token's K/V and the states in place and returns the same
+cache object with ``pos`` advanced.  A step at ``pos >= S`` raises, where
+the reference's ``dynamic_update_slice`` clamps the write onto the last
+slot.
+
+On a live mesh (``distributed.axes``) the cache holds this rank's blocks
+(``models.convert.shard_cache``: batch over the data axes, K/V sequence
+over ``model``, SSM heads and conv channels over ``model``) and the
+activations this rank's rows.  Attention runs over the rank's own slots
+of the cache (those holding positions ``< pos``), adds the current token's
+score on ``model`` rank 0 and merges the partials over ``model``
+(``attention.merge_partials_over``); the new token's K/V is written by the
+rank that owns slot ``pos``, and a prompt's by the ranks that own its
+slots.  With no mesh the rank owns every slot and nothing is merged.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.distributed.axes import constrain, embed_lookup, linear
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.axes import block_of, constrain, embed_lookup, linear, live
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.attention import NEG, chunked_attention
+from repro_torch.models.attention import NEG, chunked_attention, merge_partials_over
 from repro_torch.models.common import (BlockSpec, ModelConfig, Params, cross_entropy,
                                        ones, remat, rms_norm, rope, uinit, zeros)
 
@@ -270,8 +282,40 @@ def check_room(pos: int, kv_len: int, what: str):
                          f"({kv_len} slots); allocate a longer cache")
 
 
-def attn_decode(x, p, kcache, vcache, pos: int, cfg: ModelConfig):
-    """x (B, 1, D); kcache/vcache (B, S, K, dh) of this layer.
+def cached_attention(qr, kcache, vcache, pos: int, block=(0, 1), cur=None):
+    """One query token's attention over the cache slots holding positions
+    ``< pos``.  qr (B, K, G, dh), scaled; kcache/vcache (B, S, K, dh): block
+    ``block[0]`` of ``block[1]`` of the sequence (slots ``i * S`` on); cur:
+    the current token's (score (B, K, G, 1), value (B, K, dh)), merged in
+    explicitly (flash-decoding style).  With the sequence split the
+    partials are merged over ``model``, the current token's taken on block
+    0.  Returns (B, K, G, dh) float32."""
+    i, n = block
+    s_l = kcache.shape[1]
+    sc = torch.einsum("bkgh,bskh->bkgs", qr.float(), kcache.float())
+    valid = torch.arange(i * s_l, (i + 1) * s_l, device=qr.device) < pos
+    sc = torch.where(valid[None, None, None, :], sc, NEG)
+    own = cur is not None and i == 0
+    m = sc.amax(-1, keepdim=True)
+    if own:
+        m = torch.maximum(m, cur[0])
+    pw = torch.exp(sc - m)
+    if n > 1:                                  # a block may hold no valid slot
+        pw = torch.where(valid[None, None, None, :], pw, 0.0)
+    o = torch.einsum("bkgs,bskh->bkgh", pw.to(kcache.dtype).float(), vcache.float())
+    l = pw.sum(-1)[..., None]
+    if own:
+        p_cur = torch.exp(cur[0] - m)                            # current token
+        o = o + p_cur * cur[1][:, :, None, :].float()
+        l = l + p_cur
+    if n == 1:
+        return o / l
+    return merge_partials_over(o, m[..., 0], l[..., 0], live().model_group)
+
+
+def attn_decode(x, p, kcache, vcache, pos: int, cfg: ModelConfig, block=(0, 1)):
+    """x (B, 1, D); kcache/vcache (B, S, K, dh) of this layer (``block`` of
+    its sequence: :func:`cached_attention`).
 
     Reads the cache only: attention runs over the cached prefix [0, pos)
     plus the current token's (kx, vx) merged explicitly (flash-decoding
@@ -282,42 +326,52 @@ def attn_decode(x, p, kcache, vcache, pos: int, cfg: ModelConfig):
     q, kx, vx = _qkv(x, p, cfg, pp)
     gq = h // k
     qr = q[:, 0].reshape(b, k, gq, dh) * dh**-0.5
-    sc = torch.einsum("bkgh,bskh->bkgs", qr.float(), kcache.float())
-    valid = torch.arange(kcache.shape[1], device=x.device) < pos  # cached prefix only
-    sc = torch.where(valid[None, None, None, :], sc, NEG)
     sc_cur = torch.einsum("bkgh,bkh->bkg", qr, kx[:, 0].to(qr.dtype))[..., None]
-    m = torch.maximum(sc.amax(-1, keepdim=True), sc_cur)
-    pw = torch.exp(sc - m)
-    p_cur = torch.exp(sc_cur - m)                                # current token
-    o = torch.einsum("bkgs,bskh->bkgh", pw.to(kcache.dtype).float(), vcache.float())
-    o = o + p_cur * vx[:, 0, :, None, :].float()
-    o = o / (pw.sum(-1)[..., None] + p_cur)
+    o = cached_attention(qr, kcache, vcache, pos, block, cur=(sc_cur, vx[:, 0]))
     out = linear(o.reshape(b, h * dh).to(x.dtype), p.wo, "model", None)
     return out[:, None], kx, vx
+
+
+def fit(x, t, dim: int):
+    """``x`` cut to the block of dimension ``dim`` that cache tensor ``t``
+    holds on the live mesh (``x`` itself when it is that block already, or
+    ``t`` holds the dimension whole)."""
+    i, n = block_of(t, dim)
+    return x if n == 1 or x.shape[dim] == t.shape[dim] else coll.block(x, dim, i, n)
+
+
+def write_token(cache_t, x, pos: int, block, dim: int = 1):
+    """Write ``x`` (the new token's K or V) at ``pos`` of ``cache_t``'s
+    sequence dimension ``dim``, if this rank's block (``block``) owns it."""
+    j = pos - block[0] * cache_t.shape[dim]
+    if 0 <= j < cache_t.shape[dim]:
+        cache_t.select(dim, j).copy_(x)
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig):
     """tokens (B,) -> logits (B, V) in ``cfg.dtype``, and the cache (the same
     object, written in place, ``pos`` advanced).  One serve_step."""
-    x = params.embed[tokens][:, None]                            # (B,1,D)
+    x = embed_lookup(params.embed, tokens)[:, None]              # (B,1,D)
     pos = cache["pos"]
     for p, spec, c in zip(params.blocks, layer_specs(cfg), cache["layers"]):
         h = rms_norm(x, p.norm1, cfg.norm_eps)
         if spec.mixer == "attn":
-            check_room(pos, c["k"].shape[1], "decode_step")
-            y, kx, vx = attn_decode(h, p.attn, c["k"], c["v"], pos, cfg)
-            c["k"][:, pos] = kx[:, 0].to(c["k"].dtype)
-            c["v"][:, pos] = vx[:, 0].to(c["v"].dtype)
+            blk = block_of(c["k"], 1)
+            check_room(pos, c["k"].shape[1] * blk[1], "decode_step")
+            y, kx, vx = attn_decode(h, p.attn, c["k"], c["v"], pos, cfg, blk)
+            write_token(c["k"], kx[:, 0], pos, blk)
+            write_token(c["v"], vx[:, 0], pos, blk)
         else:
             y, (conv, ssm) = m2.mamba2_mixer(h, p.mamba, cfg, conv_state=c["conv"],
                                              ssm_state=c["ssm"], decode=True)
-            c["conv"], c["ssm"] = conv.to(c["conv"].dtype), ssm
+            c["conv"].copy_(conv)
+            c["ssm"].copy_(ssm)
         x = x + y
         if spec.mlp != "none":
             x, _ = _mlp(x, p, spec, cfg)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     cache["pos"] = pos + 1
-    return x[:, 0] @ lm_head(params, cfg), cache
+    return logits_of(x[:, 0], params, cfg), cache
 
 
 def prefill_pass(params, batch, cache, cfg: ModelConfig):
@@ -330,15 +384,19 @@ def prefill_pass(params, batch, cache, cfg: ModelConfig):
     for p, spec, c in zip(params.blocks, layer_specs(cfg), cache["layers"]):
         h = rms_norm(x, p.norm1, cfg.norm_eps)
         if spec.mixer == "attn":
-            if t > c["k"].shape[1]:
+            (i, n), s_l = block_of(c["k"], 1), c["k"].shape[1]
+            if t > s_l * n:
                 raise ValueError(f"prefill: a prompt of {t} positions is longer "
-                                 f"than the cache ({c['k'].shape[1]} slots)")
+                                 f"than the cache ({s_l * n} slots)")
             y, (kx, vx) = attn_forward(h, p.attn, cfg, positions, return_kv=True)
-            c["k"][:, :t] = kx.to(c["k"].dtype)
-            c["v"][:, :t] = vx.to(c["v"].dtype)
+            lo, hi = i * s_l, min(t, (i + 1) * s_l)        # this rank's slots
+            if hi > lo:
+                c["k"][:, :hi - lo] = kx[:, lo:hi].to(c["k"].dtype)
+                c["v"][:, :hi - lo] = vx[:, lo:hi].to(c["v"].dtype)
         else:
             y, (conv_tail, ssm_final) = m2.mamba2_mixer(h, p.mamba, cfg)
-            c["conv"], c["ssm"] = conv_tail.to(c["conv"].dtype), ssm_final
+            c["conv"].copy_(fit(conv_tail, c["conv"], 2))
+            c["ssm"].copy_(fit(ssm_final, c["ssm"], 1))
         x = x + y
         if spec.mlp != "none":
             x, _ = _mlp(x, p, spec, cfg)

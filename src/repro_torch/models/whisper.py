@@ -12,18 +12,26 @@ a dict of per-layer stacked tensors (``self_k``/``self_v`` (L, B, W, K, dh),
 ``cross_k``/``cross_v`` (L, B, S_enc, K, dh)) and a host integer ``pos``;
 a decode step writes the new token's self K/V in place and raises at ``pos
 >= W``, where the reference clamps the write onto the last slot.
+
+On a live mesh the cache holds this rank's blocks
+(``models.convert.shard_cache``: rows over the data axes, the self window's
+and the cross K/V's sequence over ``model`` where the axis divides it):
+self- and cross-attention run over the rank's positions and merge the
+partials over ``model``, as the decoder's attention does
+(``transformer.cached_attention``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.axes import constrain, embed_lookup, linear
+from repro_torch.distributed.axes import block_of, constrain, embed_lookup, linear
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import chunked_attention
 from repro_torch.models.common import (ModelConfig, Params, cross_entropy, ones, remat,
                                        rms_norm, uinit)
-from repro_torch.models.transformer import (attn_decode, attn_forward, check_room, init_attn,
-                                            init_dense_mlp)
+from repro_torch.models.transformer import (attn_decode, attn_forward, cached_attention,
+                                            check_room, fit, init_attn, init_dense_mlp,
+                                            write_token)
 
 
 def init_whisper(generator, cfg: ModelConfig, device=None):
@@ -127,43 +135,43 @@ def init_encdec_cache(params, cfg: ModelConfig, batch: int, enc_len: int, device
 
 
 def prefill_cross(params, frames, cache, cfg: ModelConfig):
-    """Fill the cross K/V of every decoder layer from the encoder memory."""
+    """Fill the cross K/V of every decoder layer from the encoder memory
+    (this rank's block of it on a live mesh)."""
     memory = encode(params, frames, cfg)
     b, s = memory.shape[:2]
     shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
-    cache["cross_k"] = torch.stack([(memory @ p.xattn.wk).reshape(shape)
-                                    for p in params.dec_blocks]).to(cfg.dtype)
-    cache["cross_v"] = torch.stack([(memory @ p.xattn.wv).reshape(shape)
-                                    for p in params.dec_blocks]).to(cfg.dtype)
+    for name, w in (("cross_k", "wk"), ("cross_v", "wv")):
+        kv = torch.stack([linear(memory, getattr(p.xattn, w), None, None).reshape(shape)
+                          for p in params.dec_blocks])
+        cache[name].copy_(fit(kv, cache[name], 2))
     return cache
 
 
 def encdec_decode_step(params, cache, tokens, cfg: ModelConfig):
     """tokens (B,) -> logits (B, V), and the cache (the same object, the self
     K/V written in place at ``pos``, ``pos`` advanced)."""
-    x = params.embed[tokens][:, None]
+    x = embed_lookup(params.embed, tokens)[:, None]
     pos = cache["pos"]
-    check_room(pos, cache["self_k"].shape[2], "encdec_decode_step")
+    self_blk, cross_blk = block_of(cache["self_k"], 2), block_of(cache["cross_k"], 2)
+    check_room(pos, cache["self_k"].shape[2] * self_blk[1], "encdec_decode_step")
+    enc_len = cache["cross_k"].shape[2] * cross_blk[1]
     hh, kk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b = x.shape[0]
     for li, p in enumerate(params.dec_blocks):
         sks, svs = cache["self_k"][li], cache["self_v"][li]
         ck, cv = cache["cross_k"][li], cache["cross_v"][li]
         h = rms_norm(x, p.norm1, cfg.norm_eps)
-        y, kx, vx = attn_decode(h, p.attn, sks, svs, pos, cfg)
-        sks[:, pos] = kx[:, 0].to(sks.dtype)
-        svs[:, pos] = vx[:, 0].to(svs.dtype)
+        y, kx, vx = attn_decode(h, p.attn, sks, svs, pos, cfg, self_blk)
+        write_token(sks, kx[:, 0], pos, self_blk)
+        write_token(svs, vx[:, 0], pos, self_blk)
         x = x + y
         h = rms_norm(x, p.norm_x, cfg.norm_eps)
-        q = (h @ p.xattn.wq).reshape(b, hh, dh)
+        q = linear(h, p.xattn.wq, None, None).reshape(b, hh, dh)
         qr = q.reshape(b, kk, hh // kk, dh) * dh**-0.5
-        sc = torch.einsum("bkgh,bskh->bkgs", qr.float(), ck.float())
-        m = sc.amax(-1, keepdim=True)
-        pw = torch.exp(sc - m)
-        o = torch.einsum("bkgs,bskh->bkgh", pw.to(ck.dtype).float(), cv.float())
-        o = (o / pw.sum(-1)[..., None]).reshape(b, hh * dh).to(x.dtype)
-        x = x + (o @ p.xattn.wo)[:, None]
+        o = cached_attention(qr, ck, cv, enc_len, cross_blk)    # every encoder position
+        o = o.reshape(b, hh * dh).to(x.dtype)
+        x = x + linear(o, p.xattn.wo, None, None)[:, None]
         x = _mlp(x, p, cfg)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     cache["pos"] = pos + 1
-    return x[:, 0] @ params.head, cache
+    return linear(x[:, 0], params.head, None, "model"), cache

@@ -171,13 +171,13 @@ FULL_ARCH = "llama3.2-1b"
 FULL = dict(batch=8, seq=128, lr=3e-4, steps=4)     # 1 warm-up, then 3 timed
 
 
-def full_width_run(mesh, seed: int = 0) -> dict:
+def full_width_run(mesh, seed: int = 0, steps: int = FULL["steps"]) -> dict:
     """llama3.2-1b at its published width (bfloat16, AdamW, microbatch 2,
     remat) on ``mesh``: the weights drawn from the seed a weight at a time
     (``models.convert.init_sharded``: ``draw_peak_gb``, a rank's peak
     while drawing, beside its ``blocks_gb`` and ``largest_weight_gb``, the
     float32 draw and the cast of the largest weight, all it may hold
-    beyond its blocks), then ``FULL["steps"]`` steps of the step-indexed
+    beyond its blocks), then ``steps`` steps of the step-indexed
     pipeline, each timed as a user runs it, then one more step with the
     collectives' time and traffic counted (``collectives.STATS``, which
     waits for the card around every call), and each rank's peak memory
@@ -218,7 +218,7 @@ def full_width_run(mesh, seed: int = 0) -> dict:
         return {k: torch.from_numpy(v).to(dev, torch.long) for k, v in pipe.batch_at(s).items()}
 
     losses, gnorms, step_ms = [], [], []
-    for s in range(FULL["steps"]):
+    for s in range(steps):
         batch = batch_at(s)
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
@@ -227,7 +227,7 @@ def full_width_run(mesh, seed: int = 0) -> dict:
         gnorms.append(float(m["grad_norm"]))
         torch.cuda.synchronize(dev)
         step_ms.append((time.perf_counter() - t1) * 1e3)
-    batch = batch_at(FULL["steps"])
+    batch = batch_at(steps)
     torch.cuda.synchronize(dev)
     coll.reset_stats(True)
     t1 = time.perf_counter()
@@ -256,11 +256,11 @@ def full_width_run(mesh, seed: int = 0) -> dict:
                 largest_weight_gb=largest * (4 + cfg.dtype.itemsize) / 1e9, ranks=ranks)
 
 
-def chip_rank(rank, world, dev, shape, out, launch_names=()):
+def chip_rank(rank, world, dev, shape, out, launch_names=(), steps: int = FULL["steps"]):
     """A rank of ``chip_smoke.py`` phase 13 on one mesh shape: (13a) every
     smoke architecture in float32 with TF32 off: one differentiation and
     one AdamW and one Adafactor step against the one-process ones; (13b)
-    :func:`full_width_run`.  Rank 0 writes the results as JSON to ``out``,
+    :func:`full_width_run` of ``steps`` steps.  Rank 0 writes the results as JSON to ``out``,
     with the six kernels' launch counts of this process (the mesh path
     runs none of them)."""
     import json
@@ -286,7 +286,7 @@ def chip_rank(rank, world, dev, shape, out, launch_names=()):
                                adamw={k: r[1][k] for k in ("share", "over_lr")},
                                adafactor={k: r[2][k] for k in ("share", "over_lr")})
     smoke_s = time.perf_counter() - t0
-    full = full_width_run(mesh)
+    full = full_width_run(mesh, steps=steps)
     mods = (fee_distance, dfloat_unpack)
     launches = {n: next(getattr(m, n).launches for m in mods if hasattr(m, n))
                 for n in launch_names}

@@ -29,7 +29,10 @@ trainer on the card must resume from a crash to the uninterrupted run's loss.
 The mesh train step over 2 and 4 NCCL ranks (one card each) and over 2 gloo
 ranks sharing one card must take the one-process step's losses and weights
 (``repro_torch.training.mesh_check``), and the mesh trainer over NCCL must
-resume from a crash to the uninterrupted run's loss.
+resume from a crash to the uninterrupted run's loss.  Decode on a mesh in
+serve mode over 2 and 4 NCCL ranks and over 2 gloo ranks sharing one card
+must give the one-process decode's logits and cache
+(``repro_torch.models.mesh_check``) with no collective on a weight.
 """
 import numpy as np
 import pytest
@@ -828,3 +831,51 @@ def test_cuda_sharded_init_holds_its_blocks_and_one_weight(cuda, shape, rank):
     want = shard_params(cfg, api.init(api.generator(0)), mesh)
     for (k, a), (k2, b) in zip(params.named_parameters(), want.named_parameters()):
         assert k == k2 and a.mesh_spec == b.mesh_spec and torch.equal(a, b), k
+
+
+def _serve_cases(tmp_path, shape, backend):
+    """``tests/torch_mesh_serve_ranks.py decode`` of the smoke llama and
+    qwen2-moe (the port's seeded weights) on the cards: rank 0's results."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).parent
+    out = tmp_path / "res.json"
+    cases = [dict(arch="llama3.2-1b"), dict(arch="qwen2-moe-a2.7b")]
+    r = subprocess.run([sys.executable, str(here / "torch_mesh_serve_ranks.py"), "decode",
+                        str(out), json.dumps({shape: cases}), "-", "cuda", backend],
+                       capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": str(here.parent / "src")})
+    assert r.returncode == 0, (r.stdout[-1500:], r.stderr[-2500:])
+    res = json.loads(out.read_text())[shape]
+    for c in res:
+        assert c["logits"] < 2e-4 and c["cache"] < 2e-4, c
+        assert c["weight_moves"] == 0 and c["steps"] == 6, c
+    return res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["1x2", "2x1"])
+def test_cuda_mesh_serve_two_nccl_ranks(no_tf32, tmp_path, shape):
+    """Decode in serve mode over 2 NCCL ranks, one card each, gives the
+    one-process decode's logits.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL takes one card a rank")
+    _serve_cases(tmp_path, shape, "nccl")
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_serve_four_nccl_ranks(no_tf32, tmp_path):
+    """Decode in serve mode over 4 NCCL ranks at (2, 2).  Needs four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: NCCL takes one card a rank")
+    _serve_cases(tmp_path, "2x2", "nccl")
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_serve_gloo_ranks_share_a_card(no_tf32, tmp_path):
+    """Decode in serve mode over 2 gloo ranks on one card at (1, 2)."""
+    _serve_cases(tmp_path, "1x2", "gloo")
