@@ -167,6 +167,24 @@ Phases, each of which fails the run when its check fails:
    smoke llama through ``launch/serve.py --decode --smoke --devices 2
    --backend gloo`` prints the one-process run's sample token ids
    (``mesh_serve_cli``).
+15. the compression baselines and the twins of the examples: (15a) PQ
+   (``repro_torch.core.baselines.fit_pq``, n_sub 8, 16, 32 and 64, 4 Lloyd
+   steps on 4,000 sampled rows) and RaBitQ fitted on the card over every
+   row of phase 3's ``db_rot`` (1,000,000 x 128); each fit twice, bit-equal;
+   the card's fit against the port's CPU fit (codebooks, center, norms and
+   ``ip_unit``, and the codes and sign bits of the first 65,536 rows) and
+   ADC distances and estimates from one state on both devices, at the CPU
+   tests' bounds (``repro_torch.core.baselines_check``); the ADC and the
+   estimates over every row for 24 queries with an exact re-rank of 40 / 30
+   (recall@10), fit and encode seconds, ms a query beside the bound, peak
+   memory (``baseline_pq``, ``baseline_rabitq``), and none of the six
+   kernels launched; (15b) ``launch/quickstart.py`` at its default ``sift``
+   (40,000 x 128): packed ids == f32 ids, recall@10 >= 0.80, kernels
+   ``fee_distance``, ``fee_distance_packed`` and ``dfloat_unpack`` launched
+   (``quickstart``); (15c) ``launch/distributed_search.py`` (4 shards
+   stacked on the card): one ``fee_distance`` launch a hop and no other FEE
+   kernel, recall@10 between the local search's at ``compact=0.5`` and 1.0,
+   +- 0.005 (``distributed_search``).
 
 The second-to-last line is the ``kernels`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  ``--n`` / ``--queries`` cut the data for a
@@ -2208,6 +2226,157 @@ def mesh_serve_phase(dev):
     check(one == mesh, f"14c: --devices 2 printed {mesh!r}, one process {one!r}")
 
 
+# phase 15: the compression baselines at the main path's width, and the twins
+# of the examples
+BASELINE_SUBS = (8, 16, 32, 64)    # benchmarks/fig20_memory_traffic.py:23's sweep
+BASELINE_QUERIES = 24
+PQ_FIT = dict(iters=4, sample=4000)
+PQ_RERANK, RABITQ_RERANK = 40, 30
+CPU_ROWS = 65_536                  # rows whose codes and signs the CPU recomputes
+
+
+def _rerank_recall(rows_d, queries_d, cands, gt, k=10):
+    """Exact l2 over each query's candidates, the k nearest against ``gt``."""
+    from repro_torch.data.synthetic import recall_at_k
+
+    d = ((rows_d[cands] - queries_d[:, None, :]) ** 2).sum(-1)
+    top = torch.gather(cands, 1, d.topk(k, dim=1, largest=False).indices)
+    return recall_at_k(top.cpu().numpy(), gt, k)
+
+
+def _fit_timed(fn, dev):
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def baselines_phase(rows, queries, gt, dev, kernels):
+    """Phase 15a: PQ at each n_sub of BASELINE_SUBS and RaBitQ, fitted on the
+    card over every row of ``rows`` (phase 3's ``db_rot``); each fit twice
+    (bit-equal), against the port's CPU fit (``core.baselines_check``: the
+    CPU tests' bounds, codes and signs on the first CPU_ROWS rows), the ADC
+    and the estimates over every row for BASELINE_QUERIES queries with an
+    exact re-rank (recall@10), and from one state on both devices."""
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import baselines_check as bc
+
+    n, d = rows.shape
+    rows_d = torch.from_numpy(rows).to(dev)
+    q_host = queries[:BASELINE_QUERIES]
+    q_d = torch.from_numpy(q_host).to(dev)
+    gt = gt[:BASELINE_QUERIES, :10]
+    ids = torch.arange(n, device=dev)
+    prefix = rows[:CPU_ROWS]
+    for fn in kernels.values():
+        fn.launches = 0
+    for n_sub in BASELINE_SUBS:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fit = lambda: bl.fit_pq(rows, n_sub, "l2", device=dev, **PQ_FIT)
+        pq, fit_s = _fit_timed(fit, dev)
+        codes, encode_s = _fit_timed(lambda: bl.pq_encode(pq.codebooks, rows), dev)
+        adc = lambda: [bl.pq_distances(pq, q, ids) for q in q_d]
+        dists = torch.stack(adc())
+        peak = torch.cuda.max_memory_allocated() - held
+        adc_ms = time_ms(adc, reps=3, warmup=1) / len(q_d)
+        recall = _rerank_recall(rows_d, q_d, dists.topk(PQ_RERANK, dim=1, largest=False).indices,
+                                gt)
+        again = fit()
+        check(bc.same_bits(again, pq) and torch.equal(codes, pq.codes),
+              f"15a: two PQ fits (n_sub {n_sub}) from seed 0 differ on the card")
+        del again, codes
+        t0 = time.perf_counter()
+        cpu_books = bl.pq_codebooks(rows, n_sub, device="cpu", **PQ_FIT)
+        cpu = bc.compare_pq(pq, cpu_books, bl.pq_encode(cpu_books, prefix), prefix,
+                            f"15a PQ n_sub {n_sub} card vs CPU")
+        here = bl.PQ(pq.codebooks.cpu(), pq.codes[:CPU_ROWS].cpu(), pq.d_sub, pq.metric)
+        adc_rel = max(bc.close(dists[i, :CPU_ROWS], bl.pq_distances(here, q, np.arange(CPU_ROWS)),
+                               f"15a ADC n_sub {n_sub}, query {i}")
+                      for i, q in enumerate(q_host))
+        b_ms, b_by = bound(n * n_sub + n_sub * bl.K * 4 + n * 4, 0)
+        log(json.dumps({"baseline_pq": {
+            "n": n, "dim": d, "n_sub": n_sub, **PQ_FIT, "bits_per_vector": pq.bits_per_vector,
+            "fit_s": fit_s, "encode_s": encode_s, "train_s": fit_s - encode_s,
+            "adc_ms_per_query": adc_ms, "adc_bound_ms": b_ms, "adc_bound_by": b_by,
+            "adc_bound_share": b_ms / adc_ms, "rerank": PQ_RERANK, "recall_at_10": recall,
+            "peak_bytes": peak, "card_vs_cpu": {**cpu, "adc_rel": adc_rel},
+            "cpu_check_s": time.perf_counter() - t0}}))
+        del pq, dists, here
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fit = lambda: bl.fit_rabitq(rows, "l2", device=dev)
+    rq, fit_s = _fit_timed(fit, dev)
+    est_fn = lambda: [bl.rabitq_estimate(rq, q, ids) for q in q_host]
+    est = torch.stack(est_fn())
+    peak = torch.cuda.max_memory_allocated() - held
+    est_ms = time_ms(est_fn, reps=3, warmup=1) / len(q_host)
+    recall = _rerank_recall(rows_d, q_d, est.topk(RABITQ_RERANK, dim=1, largest=False).indices,
+                            gt)
+    check(bc.same_bits(fit(), rq), "15a: two RaBitQ fits from seed 0 differ on the card")
+    t0 = time.perf_counter()
+    cpu = bc.compare_rabitq(rq, bl.fit_rabitq(rows, "l2", device="cpu"), prefix,
+                            "15a RaBitQ card vs CPU")
+    here = bl.RaBitQ(rq.rotation.cpu(), rq.center.cpu(), rq.signs[:CPU_ROWS].cpu(),
+                     rq.norms[:CPU_ROWS].cpu(), rq.ip_unit[:CPU_ROWS].cpu(), rq.metric)
+    est_rel = max(bc.close(est[i, :CPU_ROWS], bl.rabitq_estimate(here, q, np.arange(CPU_ROWS)),
+                           f"15a RaBitQ estimate, query {i}")
+                  for i, q in enumerate(q_host))
+    b_ms, b_by = bound(n * (d // 8 + 4 + 4 + 8), 0)
+    log(json.dumps({"baseline_rabitq": {
+        "n": n, "dim": d, "bits_per_vector": rq.bits_per_vector, "fit_s": fit_s,
+        "estimate_ms_per_query": est_ms, "estimate_bound_ms": b_ms, "estimate_bound_by": b_by,
+        "rerank": RABITQ_RERANK, "recall_at_10": recall, "peak_bytes": peak,
+        "card_vs_cpu": {**cpu, "estimate_rel": est_rel},
+        "cpu_check_s": time.perf_counter() - t0}}))
+    counts = launch_counts(kernels)
+    check(not any(counts.values()), f"15a: the baselines launched a search kernel: {counts}")
+
+
+def examples_phase(dev, kernels):
+    """Phase 15b: ``launch/quickstart.py`` at its default ``sift`` (40,000 x
+    128): packed ids == f32 ids, recall@10 >= 0.80, the f32, packed and
+    decode kernels launched.  15c: ``launch/distributed_search.py`` (4 shards
+    stacked on the card): one ``fee_distance`` launch a hop and no other FEE
+    kernel, recall@10 between the local search's at ``compact=0.5`` and 1.0,
+    +- 0.005 (phase 10b's check)."""
+    from repro_torch.index import SearchParams
+    from repro_torch.launch import distributed_search, quickstart
+
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = quickstart.main(["--device", dev.type])
+    counts = launch_counts(kernels)
+    log(json.dumps({"quickstart": {**out, "launches": counts,
+                                   "s": time.perf_counter() - t0}}))
+    check(out["packed_ids_equal"], "15b: quickstart's packed ids differ from its f32 ids")
+    check(out["recall_at_10"] >= 0.80, f"15b: quickstart recall@10 {out['recall_at_10']:.4f}")
+    for k in ("fee_distance", "fee_distance_packed", "dfloat_unpack"):
+        check(counts[k] > 0, f"15b: quickstart did not launch {k}")
+
+    t0 = time.perf_counter()
+    db, idx = distributed_search.build(dev)
+    for fn in kernels.values():
+        fn.launches = 0
+    out = distributed_search.report(db, idx, 4, dev)
+    counts = launch_counts(kernels)
+    local = {c: idx.search(db.queries, SearchParams(ef=48, k=10, use_dfloat=False, compact=c),
+                           device=dev).recall(db.gt, 10) for c in (0.5, 1.0)}
+    log(json.dumps({"distributed_search": {**out, "launches": counts,
+                                           "local_recall_at_10": local,
+                                           "s": time.perf_counter() - t0}}))
+    check(counts["fee_distance"] == out["hops_max"],
+          f"15c: {counts['fee_distance']} fee_distance launches for {out['hops_max']} hops")
+    others = {k: v for k, v in counts.items() if k != "fee_distance" and v}
+    check(not others, f"15c: the sharded f32 search launched {others}")
+    check(local[0.5] - 0.005 <= out["recall_at_10"] <= local[1.0] + 0.005,
+          f"15c: recall@10 {out['recall_at_10']:.4f} outside [{local[0.5]:.4f}, "
+          f"{local[1.0]:.4f}] (the local search at compact 0.5 and 1.0) +- 0.005")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="base vectors")
@@ -2317,6 +2486,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     mesh_serve_phase(dev)
     log(json.dumps({"mesh_serve_phase_s": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    baselines_phase(index.db_rot, index.transform_queries(db.queries), db.gt, dev, kernels)
+    examples_phase(dev, kernels)
+    log(json.dumps({"baselines_examples_phase_s": time.perf_counter() - t0}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

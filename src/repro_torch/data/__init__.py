@@ -1,0 +1,1 @@
+from repro_torch.data.synthetic import DATASETS, VecDB, make_dataset  # noqa: F401

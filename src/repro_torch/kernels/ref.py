@@ -14,6 +14,7 @@ import math
 import torch
 
 from repro_torch.core import dfloat as dfl
+from repro_torch.core import fee as fee_mod
 
 
 def fee_distance_ref(q, x, threshold, alpha, beta, margin, *, seg,
@@ -40,6 +41,16 @@ def fee_distance_ref(q, x, threshold, alpha, beta, margin, *, seg,
     segs_used = torch.where(any_exit, first_exit + 1, s).to(torch.int32)
     dist = torch.gather(cum, -1, (segs_used - 1).long()[..., None])[..., 0]
     return dist, any_exit, segs_used
+
+
+def fee_search_semantics_ref(q, x, threshold, alpha, beta, margin, *, seg,
+                             metric="l2"):
+    """The full-distance FEE contract that ``core.search`` uses
+    (``core.fee.fee_distance``): every lane's score is its full distance,
+    with the same ``rejected`` and ``segs_used`` as :func:`fee_distance_ref`,
+    so survivors' scores agree between the two contracts."""
+    return fee_mod.fee_distance(q, x, threshold, alpha, beta, margin,
+                                seg=seg, metric=metric)
 
 
 def fold_lane_mask(out, lane_mask):

@@ -19,12 +19,12 @@ import argparse
 import json
 from pathlib import Path
 
-from repro_torch.launch.dryrun import OUT_DIR
+from repro_torch.launch.dryrun import OUT_DIR as DRYRUN_DIR
 
 HEADER = ("arch", "shape", "16x16", "2x16x16", "stateGB", "fitGB", "collGB", "TFLOP", "pass_s")
 
 
-def load(mesh: str, dry_dir: Path = OUT_DIR) -> dict:
+def load(mesh: str, dry_dir: Path = DRYRUN_DIR) -> dict:
     recs = {}
     for f in sorted(Path(dry_dir).glob(f"*__{mesh}.json")):
         r = json.loads(f.read_text())
@@ -54,7 +54,7 @@ def _row(key, s, m) -> list:
             str(s.get("pass_s", ""))]
 
 
-def dryrun_table(markdown: bool = False, dry_dir: Path = OUT_DIR) -> str:
+def dryrun_table(markdown: bool = False, dry_dir: Path = DRYRUN_DIR) -> str:
     """The table (``fitGB`` ends in ``!`` where the total does not fit the
     card's memory)."""
     single, multi = load("single", dry_dir), load("multi", dry_dir)
@@ -71,7 +71,7 @@ def dryrun_table(markdown: bool = False, dry_dir: Path = OUT_DIR) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--markdown", action="store_true")
-    ap.add_argument("--dir", default=str(OUT_DIR), help="the dry run's records")
+    ap.add_argument("--dir", default=str(DRYRUN_DIR), help="the dry run's records")
     args = ap.parse_args(argv)
     print("== Dry-run table ==")
     print(dryrun_table(args.markdown, Path(args.dir)))

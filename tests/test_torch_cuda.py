@@ -32,7 +32,10 @@ ranks sharing one card must take the one-process step's losses and weights
 resume from a crash to the uninterrupted run's loss.  Decode on a mesh in
 serve mode over 2 and 4 NCCL ranks and over 2 gloo ranks sharing one card
 must give the one-process decode's logits and cache
-(``repro_torch.models.mesh_check``) with no collective on a weight.
+(``repro_torch.models.mesh_check``) with no collective on a weight.  The PQ
+and RaBitQ baselines fitted on the card must repeat bit for bit and meet the
+CPU's fit at the CPU tests' bounds; the twins of the quickstart and
+distributed-search examples must run on the card through their kernels.
 """
 import numpy as np
 import pytest
@@ -879,3 +882,65 @@ def test_cuda_mesh_serve_four_nccl_ranks(no_tf32, tmp_path):
 def test_cuda_mesh_serve_gloo_ranks_share_a_card(no_tf32, tmp_path):
     """Decode in serve mode over 2 gloo ranks on one card at (1, 2)."""
     _serve_cases(tmp_path, "1x2", "gloo")
+
+
+@pytest.mark.cuda
+def test_cuda_baselines_match_cpu_and_repeat(cuda):
+    """PQ (n_sub 4, 8, 16) and RaBitQ (l2, ip) on the card over the unit
+    rows: two fits from one seed equal bit for bit, the fit against the CPU's
+    at the CPU tests' bounds (``repro_torch.core.baselines_check``), and ADC
+    distances and estimates from one state within rtol 1e-5 on both."""
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import baselines_check as bc
+    from repro_torch.data.synthetic import make_dataset
+
+    db = make_dataset("unit", device="cpu", cache=False)
+    x, ids = db.vectors, np.arange(db.n)
+    for n_sub in (4, 8, 16):
+        pq = bl.fit_pq(x, n_sub, iters=4, device=cuda)
+        assert bc.same_bits(pq, bl.fit_pq(x, n_sub, iters=4, device=cuda))
+        cpu = bl.fit_pq(x, n_sub, iters=4, device="cpu")
+        bc.compare_pq(pq, cpu.codebooks, cpu.codes, x)
+        here = bl.PQ(pq.codebooks.cpu(), pq.codes.cpu(), pq.d_sub, pq.metric)
+        for metric in ("l2", "ip"):
+            pq.metric = here.metric = metric
+            for q in db.queries[:4]:
+                bc.close(bl.pq_distances(pq, q, ids), bl.pq_distances(here, q, ids), "adc")
+    for metric in ("l2", "ip"):
+        rq = bl.fit_rabitq(x, metric, device=cuda)
+        assert bc.same_bits(rq, bl.fit_rabitq(x, metric, device=cuda))
+        bc.compare_rabitq(rq, bl.fit_rabitq(x, metric, device="cpu"), x)
+        here = bl.RaBitQ(*(getattr(rq, f).cpu() for f in ("rotation", "center", "signs",
+                                                           "norms", "ip_unit")), metric)
+        for q in db.queries[:4]:
+            bc.close(bl.rabitq_estimate(rq, q, ids), bl.rabitq_estimate(here, q, ids),
+                     "estimate")
+
+
+@pytest.mark.cuda
+def test_cuda_quickstart_tiny(cuda, capsys):
+    """``launch/quickstart.py --tiny`` on the card: packed ids == f32 ids, the
+    f32, packed and decode kernels launched."""
+    from repro_torch.launch import quickstart
+
+    fee_kernel.fee_distance.launches = fee_kernel.fee_distance_packed.launches = 0
+    unpack_kernel.dfloat_unpack.launches = 0
+    out = quickstart.main(["--tiny"])
+    assert out["packed_ids_equal"] and out["recall_at_10"] >= 0.80
+    assert fee_kernel.fee_distance.launches > 0 and fee_kernel.fee_distance_packed.launches > 0
+    assert unpack_kernel.dfloat_unpack.launches > 0
+    assert "neighbor ids bit-identical: True" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+def test_cuda_distributed_search(cuda):
+    """``launch/distributed_search.py`` on the card (4 shards stacked): one
+    ``fee_distance`` launch a hop, recall@10 equal to the CPU's run."""
+    from repro_torch.launch import distributed_search
+
+    fee_kernel.fee_distance.launches = 0
+    db, idx = distributed_search.build(cuda)
+    out = distributed_search.report(db, idx, 4, cuda)
+    assert fee_kernel.fee_distance.launches == out["hops_max"]
+    assert out == distributed_search.main(["--device", "cuda"])
+    assert out["recall_at_10"] >= 0.80

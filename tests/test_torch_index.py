@@ -158,7 +158,8 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.launch.train_lm, repro_torch.distributed.sharding, "
             "repro_torch.distributed.axes, repro_torch.distributed.collectives, "
             "repro_torch.launch.mesh, repro_torch.ft.elastic, "
-            "repro_torch.training.mesh_check, chip_smoke; "
+            "repro_torch.training.mesh_check, repro_torch.core.baselines, "
+            "repro_torch.launch.quickstart, repro_torch.launch.distributed_search, chip_smoke; "
             "from repro_torch import configs; [configs.get_config(a) for a in configs.ARCHS]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
@@ -202,5 +203,14 @@ def test_entry_points_raise_without_a_card(built, tmp_path, monkeypatch):
                  lambda: build_graph(tdb.vectors[:100], m=4),
                  lambda: port.fee.params(),
                  lambda: FeeParams.identity(4)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # the twins of the examples and the compression baselines
+    from repro_torch.core import baselines
+    from repro_torch.launch import distributed_search, quickstart
+
+    for call in (lambda: quickstart.main([]), lambda: distributed_search.main([]),
+                 lambda: baselines.fit_pq(tdb.vectors, 8, device="cuda"),
+                 lambda: baselines.fit_rabitq(tdb.vectors, device="cuda")):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
