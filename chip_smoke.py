@@ -861,7 +861,6 @@ def profile_search(index, db, dev, p50_ms, storage="f32", backend="local", **opt
         "backend": backend, **opts, "compact": compact,
         "storage": storage, "batch": len(db.queries), "p50_batch_ms": p50_ms,
         "device_busy_ms": busy_ms,
-        "idle_share": 1.0 - busy_ms / p50_ms,
         "kernel_launches": sum(e.count for e in kernels),
         "port_kernels_ms": ms(e for e in kernels if any(k in e.key for k in PORT_KERNELS)),
         "top": [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in top]}}))
@@ -1271,8 +1270,9 @@ def replay(snapshot, cfg, db, cases, resps):
 def profile_buckets(snapshot, cfg, db, dev):
     """``torch.profiler`` over SERVE_PROFILE_BATCHES batches (ef 64, f32) at
     batch buckets 1 and 32, through the batcher's ``run_bucketed``: device
-    busy against wall time, the idle share, kernel launches per batch and
-    the port's kernels' time."""
+    busy beside the unprofiled wall time, kernel launches per batch and the
+    port's kernels' time.  (The benchmark's ``device.idle_pct.serve`` reads
+    the idle share from one profiled timeline.)"""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.batcher import run_bucketed
@@ -1299,7 +1299,7 @@ def profile_buckets(snapshot, cfg, db, dev):
                    service_ms=[s * 1e3 for s in service])
         if kernels:
             busy = ms(kernels)
-            rep.update(device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
+            rep.update(device_busy_ms=busy,
                        launches_per_batch=sum(e.count for e in kernels) / len(qs),
                        port_kernels_ms=ms(e for e in kernels
                                           if any(k in e.key for k in PORT_KERNELS)))

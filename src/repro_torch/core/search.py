@@ -34,6 +34,11 @@ Trace layout (``trace=True``, ``cfg.hops()`` hops), per query: ``node`` is
 compaction in pop order; ``src[j]`` is the pop slot whose neighbor list slot
 ``j`` came from.  Results carry a leading query axis, as the JAX ``vmap``
 output does.
+
+With the process tracer on (``repro_torch.obs``), a chunk's loop records a
+``search.beam`` span (attribute ``hops``: the loop's iterations) and marks
+each termination readback ``search.sync`` and each hop ``search.hop``
+(profiler ranges, no spans); the descent records ``search.descend``.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ import torch
 from repro_torch.core import fee as fee_mod
 from repro_torch.core.fee import BIG, FeeParams
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import tracer
 
 FEE_BACKENDS = kops.BACKENDS
 STORAGES = ("f32", "packed", "tiered")
@@ -303,29 +309,39 @@ def _search_batch(vectors, adj, fee, tombstone, queries, entries, *,
     # where at least one node was popped)
     cnt_keys = (("n_eval", "dims", "n_resid") if cfg.storage == "tiered"
                 else ("n_eval", "dims"))
-    state = _init_state(queries, entries, vectors, cfg, n_words, dfl_cfg)
-    hop = lambda s: _hop_body(s, vectors, adj, queries, fee, cfg, dfl_cfg,
-                              tombstone)
-    if trace:
-        hops = []
-        for _ in range(cfg.hops()):
-            state, t = hop(state)
-            hops.append(t)
-        traces = {k: torch.stack([t[k] for t in hops], dim=1) for k in hops[0]}
-    else:
-        counters = torch.zeros((queries.shape[0], len(cnt_keys) + 1),
-                               dtype=torch.int64, device=queries.device)
-        while True:
-            _, beam_d, expanded, _ = state
-            if not bool(((~expanded) & (beam_d < BIG)).any()):
-                break
-            state, t = hop(state)
-            counters += torch.stack([t[k] for k in cnt_keys]
-                                    + [(t["node"] >= 0).any(1).to(torch.int32)],
-                                    dim=1)
-    beam_ids, beam_d = state[0], state[1]
-    if tombstone is not None:
-        beam_ids, beam_d = exclude_dead(beam_ids, beam_d, tombstone)
+    with tracer.span("search.beam", q=queries.shape[0]) as beam:
+        state = _init_state(queries, entries, vectors, cfg, n_words, dfl_cfg)
+        hop = lambda s: _hop_body(s, vectors, adj, queries, fee, cfg, dfl_cfg,
+                                  tombstone)
+        n_hops = 0
+        if trace:
+            hops = []
+            for _ in range(cfg.hops()):
+                with tracer.mark("search.hop"):
+                    state, t = hop(state)
+                hops.append(t)
+            n_hops = len(hops)
+            traces = {k: torch.stack([t[k] for t in hops], dim=1) for k in hops[0]}
+        else:
+            counters = torch.zeros((queries.shape[0], len(cnt_keys) + 1),
+                                   dtype=torch.int64, device=queries.device)
+            while True:
+                _, beam_d, expanded, _ = state
+                # the host waits here for the device: the hop's one sync
+                with tracer.mark("search.sync"):
+                    active = bool(((~expanded) & (beam_d < BIG)).any())
+                if not active:
+                    break
+                with tracer.mark("search.hop"):
+                    state, t = hop(state)
+                    counters += torch.stack(
+                        [t[k] for k in cnt_keys]
+                        + [(t["node"] >= 0).any(1).to(torch.int32)], dim=1)
+                n_hops += 1
+        beam_ids, beam_d = state[0], state[1]
+        if tombstone is not None:
+            beam_ids, beam_d = exclude_dead(beam_ids, beam_d, tombstone)
+        beam.set(hops=n_hops)
     out = dict(ids=beam_ids[:, : cfg.k], dists=beam_d[:, : cfg.k])
     if trace:
         out["trace"] = traces
@@ -392,17 +408,20 @@ def make_searcher(vectors, adj, cfg: SearchConfig,
 def _greedy_level(vecs_l, adj_l, queries, cur, *, metric: str):
     """One upper-layer greedy descent for a whole query batch: each query
     moves to its nearest neighbor while that improves its distance (a query
-    that stops improving is a fixed point of the step)."""
+    that stops improving is a fixed point of the step).  Returns the
+    positions reached and the steps taken, each one a sync."""
     c = cur.long()
     d = fee_mod.exact_distance(queries, vecs_l[c][:, None, :], metric=metric)[:, 0]
+    steps = 0
     while True:
+        steps += 1
         nb = adj_l[c].long()
         nd = fee_mod.exact_distance(queries, vecs_l[nb], metric=metric)
         j = torch.argmin(nd, dim=1, keepdim=True)      # first minimum
         ndj = torch.gather(nd, 1, j)[:, 0]
         better = ndj < d
         if not bool(better.any()):
-            return c
+            return c, steps
         c = torch.where(better, torch.gather(nb, 1, j)[:, 0], c)
         d = torch.minimum(ndj, d)
 
@@ -417,14 +436,18 @@ def descend_entry(vectors, graph, queries, metric: str) -> np.ndarray:
     fetch = vectors if callable(vectors) else (lambda ids: vectors[ids])
     entries = np.full(len(queries), graph.entry, np.int64)
     dev = queries.device
-    for ids, adj in reversed(graph.levels[1:]):
-        # level ids are sorted by construction (graph.build_graph)
-        pos = np.clip(np.searchsorted(ids, entries), 0, len(ids) - 1)
-        cur = np.where(ids[pos] == entries, pos, 0)
-        cur = _greedy_level(fetch(ids), torch.as_tensor(adj, device=dev),
-                            queries, torch.as_tensor(cur, device=dev),
-                            metric=metric)
-        entries = ids[cur.cpu().numpy()]
+    steps = 0
+    with tracer.span("search.descend") as sp:
+        for ids, adj in reversed(graph.levels[1:]):
+            # level ids are sorted by construction (graph.build_graph)
+            pos = np.clip(np.searchsorted(ids, entries), 0, len(ids) - 1)
+            cur = np.where(ids[pos] == entries, pos, 0)
+            cur, n = _greedy_level(fetch(ids), torch.as_tensor(adj, device=dev),
+                                   queries, torch.as_tensor(cur, device=dev),
+                                   metric=metric)
+            steps += n
+            entries = ids[cur.cpu().numpy()]
+        sp.set(levels=len(graph.levels) - 1, steps=steps)
     return entries.astype(np.int32)
 
 

@@ -23,16 +23,15 @@ from repro_torch.core import search as search_mod
 from repro_torch.index.types import SearchParams, SearchResult
 from repro_torch.ndpsim import SimFlags, account_writes, simulate_ndp
 from repro_torch.ndpsim.timing import NASZIP_2CH
-from repro_torch.obs import default_registry
+from repro_torch.obs import default_registry, tracer
 
 
-def _record_search(res: SearchResult, dim: int, bytes_per_dim: float) -> None:
+def _record_search(res: SearchResult, dim: int) -> None:
     """Feed one batch's :class:`SearchResult` counters (host arrays) into the
     process-wide telemetry registry (``repro_torch.obs.default_registry``),
     under the JAX package's names: queries served, hops, lanes evaluated,
     feature dims touched vs touchable (the FEE exit fraction is
-    ``1 - dims_touched/dims_possible``), residual-tier fetches and
-    approximate payload bytes streamed from the base-vector store."""
+    ``1 - dims_touched/dims_possible``) and residual-tier fetches."""
     reg = default_registry()
     reg.counter("search.queries").inc(len(res.ids))
     if res.hops is not None:
@@ -40,25 +39,12 @@ def _record_search(res: SearchResult, dim: int, bytes_per_dim: float) -> None:
     if res.n_eval is not None:
         reg.counter("search.lanes_evaluated").inc(float(np.sum(res.n_eval)))
     if res.dims is not None:
-        dims = float(np.sum(res.dims))
-        reg.counter("search.dims_touched").inc(dims)
-        reg.counter("search.payload_bytes").inc(dims * bytes_per_dim)
+        reg.counter("search.dims_touched").inc(float(np.sum(res.dims)))
         if res.n_eval is not None:
             reg.counter("search.dims_possible").inc(
                 float(np.sum(res.n_eval)) * dim)
     if res.n_resid is not None:
         reg.counter("search.residual_fetches").inc(float(np.sum(res.n_resid)))
-
-
-def _bytes_per_dim(params: SearchParams, dfloat_cfg) -> float:
-    """Bytes streamed per feature dim under the storage mode: the packed or
-    tiered bitstream moves ``total_bits / dim`` bits, dense f32 moves 4 B."""
-    if params.storage == "tiered":
-        bits = sum(c.total_bits() for c in dfloat_cfg)
-        return bits / 8.0 / max(sum(c.dim for c in dfloat_cfg), 1)
-    if params.storage == "packed":
-        return dfloat_cfg.total_bits() / 8.0 / max(dfloat_cfg.dim, 1)
-    return 4.0
 
 
 BACKENDS = ("local", "sharded", "ndpsim")
@@ -127,14 +113,19 @@ def local_searcher(index, params: SearchParams, *, device, fee=None):
         trace=params.trace, dfloat_cfg=dfloat_cfg,
         tombstone=index.device_tombstone(device))
     rows = _descent_rows(params, vectors, dfloat_cfg, device)
-    bpd = _bytes_per_dim(params, dfloat_cfg)
 
     def run(queries) -> SearchResult:
-        qr = torch.from_numpy(index.transform_queries(np.asarray(queries))).to(device)
-        entries = search_mod.descend_entry(rows, index.graph, qr, index.metric)
-        res = SearchResult.from_raw(searcher(qr, entries))
-        res.generation = index.generation
-        _record_search(res, index.dim, bpd)
+        with tracer.span("search.call", q=len(queries), storage=params.storage,
+                         ef=params.ef):
+            with tracer.span("search.transform"):
+                qr = torch.from_numpy(
+                    index.transform_queries(np.asarray(queries))).to(device)
+            entries = search_mod.descend_entry(rows, index.graph, qr, index.metric)
+            raw = searcher(qr, entries)
+            with tracer.span("search.readback"):
+                res = SearchResult.from_raw(raw)
+            res.generation = index.generation
+            _record_search(res, index.dim)
         return res
 
     return run

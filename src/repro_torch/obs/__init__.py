@@ -20,7 +20,9 @@ Two halves, one import surface:
   zero-allocation disabled path.  The serving tier instruments the full
   request lifecycle (``queue_wait -> admission -> bucket_pad -> device_exec
   -> topk_slice -> resolve``, ``repro_torch.serve.batcher``), hot-swap
-  installs (``swap.install``) and WAL flushes (``wal.flush``).
+  installs (``swap.install``), WAL flushes (``wal.flush``) and the search
+  call from the inside (``serve.batch``, ``search.*``), whose live spans
+  also stand among a running ``torch.profiler``'s host events.
 * **Telemetry** (``repro_torch.obs.registry``): typed counters / gauges /
   histograms (bounded quantile sketches — no unbounded sample lists) with
   JSON-snapshot and text expositions and a periodic file exporter.

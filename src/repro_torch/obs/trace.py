@@ -25,6 +25,31 @@ instrumented end-to-end (see ``repro_torch.serve.batcher``)::
 plus named spans around generation hot-swap installs (``swap.install``), WAL
 flushes (``wal.flush``) and watchdog restarts (instant events).
 
+The local search call (``repro_torch.index.backends.local_searcher``) is
+instrumented from the inside, with live spans and no request id::
+
+    serve.batch                 one batcher run (batch, n, bucket)
+      search.call               one ``run()`` (q, storage, ef)
+        search.transform        host sPCA, queries copied to the device
+        search.descend          upper-level greedy descent (levels, steps)
+        search.beam             one query chunk's beam loop (q, hops)
+          search.sync           the per-hop termination readback (mark)
+          search.hop            one hop's launches and counter sums (mark)
+        search.readback         results copied to the host
+
+``serve.batch``'s ``batch`` is a process-wide sequence number that the
+batch's ``device_exec`` spans carry too.  The two per-hop blocks are marks
+(:meth:`Tracer.mark`): profiler ranges only, kept out of the ring, where
+tens of thousands of them would cost the collector full passes.
+
+**One clock with the device trace.**  While a ``torch.profiler`` records, a
+live span or a mark also opens a profiler range of its name (torch's C++
+``_RecordFunctionFast``), so it stands among the profiler's host events on
+the profiler's clock (the wall clock, not ``perf_counter_ns``) and a device
+gap can be placed inside it.  The profiler records such ranges on the
+threads it profiles (by default the thread that started it).  Stamped spans
+(:meth:`Tracer.add_span`) are not mirrored.
+
 Export: :meth:`Tracer.chrome_trace` emits the Chrome ``chrome://tracing`` /
 Perfetto JSON format (``{"traceEvents": [{"ph": "X", ...}]}``);
 :meth:`Tracer.request_timeline` returns one request's ordered stage list with
@@ -33,6 +58,7 @@ millisecond durations.
 from __future__ import annotations
 
 import json
+import sys
 import threading
 import time
 from collections import deque
@@ -102,10 +128,21 @@ class _NoopSpan:
 _NOOP = _NoopSpan()
 
 
+def _profiler_range(name: str):
+    """An unentered profiler range named ``name`` (torch's C++
+    ``_RecordFunctionFast``, which stands among the profiler's host events
+    under ``name``) while a torch profiler records; None otherwise (torch
+    not imported, or no profiler on)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd.profiler._is_profiler_enabled:
+        return None
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
 class _LiveSpan:
     """Context manager for an in-flight span (enabled path only)."""
 
-    __slots__ = ("_tracer", "name", "req", "attrs", "_t0", "_depth")
+    __slots__ = ("_tracer", "name", "req", "attrs", "_t0", "_depth", "_rf")
 
     def __init__(self, tracer: "Tracer", name: str, req, attrs):
         self._tracer = tracer
@@ -122,10 +159,15 @@ class _LiveSpan:
         self._depth = len(stack)
         stack.append(self)
         self._t0 = time.perf_counter_ns()
+        self._rf = _profiler_range(self.name)
+        if self._rf is not None:
+            self._rf.__enter__()
         return self
 
     def __exit__(self, *exc):
         dur = time.perf_counter_ns() - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
         stack = self._tracer._stack()
         if stack and stack[-1] is self:
             stack.pop()
@@ -164,6 +206,14 @@ class Tracer:
         if not self.enabled:
             return _NOOP
         return _LiveSpan(self, name, req, attrs)
+
+    def mark(self, name: str):
+        """Context manager for a block too frequent to keep in the ring (one
+        a hop): a profiler range named ``name`` while tracing is on and a
+        torch profiler records, and no span; else the shared no-op."""
+        if not self.enabled:
+            return _NOOP
+        return _profiler_range(name) or _NOOP
 
     def add_span(self, name: str, t0_ns: int, t1_ns: int, req=None,
                  depth: int = 0, **attrs) -> None:

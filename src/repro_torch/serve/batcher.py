@@ -28,10 +28,14 @@ Tracing: ``resolve_batch`` stamps the stage boundaries of every batch
 request) and, when the process tracer is enabled, emits one span per request
 per stage: ``queue_wait -> admission -> bucket_pad -> device_exec ->
 topk_slice -> resolve``.  The span construction itself is guarded behind
-``tracer.enabled``, so the disabled hot path allocates nothing.
+``tracer.enabled``, so the disabled hot path allocates nothing.  Each run
+of the program is also one live ``serve.batch`` span (attributes ``batch``,
+a sequence number, ``n`` and ``bucket``), around the search's own spans; the
+batch's ``device_exec`` spans carry the same ``batch``.
 """
 from __future__ import annotations
 
+import itertools
 import time
 
 import numpy as np
@@ -39,6 +43,9 @@ import numpy as np
 from repro_torch.index import SearchParams
 from repro_torch.obs import tracer
 from repro_torch.resilience import InjectedCrash, fault_point
+
+# device batches' sequence numbers, one count for every server of the process
+_BATCHES = itertools.count()
 
 
 def params_for(cfg, ef_bucket: int, expand: int, storage: str) -> SearchParams:
@@ -56,7 +63,9 @@ def run_bucketed(snapshot, cfg, queries: np.ndarray, ef_bucket: int,
     the padding rows already dropped.  ``bucket`` pins the batch bucket (a
     test replaying one request against the exact program that served it).
     ``timings`` (optional dict) receives the ``t_exec_ns``/``t_done_ns``
-    stage boundaries so the caller can attribute pad vs device time."""
+    stage boundaries so the caller can attribute pad vs device time, and
+    the batch's sequence number (``batch``, drawn from one process-wide
+    count), which the ``serve.batch`` span around the run carries too."""
     n = len(queries)
     bucket = bucket or cfg.batch_bucket(n)
     if n < bucket:
@@ -64,12 +73,15 @@ def run_bucketed(snapshot, cfg, queries: np.ndarray, ef_bucket: int,
         queries = np.concatenate([queries, pad], axis=0)
     run = snapshot.searcher("local", params_for(cfg, ef_bucket, expand,
                                                 storage))
+    seq = next(_BATCHES)
     t0_ns = time.perf_counter_ns()
-    res = run(queries)
+    with tracer.span("serve.batch", batch=seq, n=n, bucket=bucket):
+        res = run(queries)
     t1_ns = time.perf_counter_ns()
     if timings is not None:
         timings["t_exec_ns"] = t0_ns
         timings["t_done_ns"] = t1_ns
+        timings["batch"] = seq
     return res.ids[:n], res.dists[:n], res.generation, (t1_ns - t0_ns) / 1e9, res
 
 
@@ -142,7 +154,8 @@ def resolve_batch(snapshot, cfg, serve: list, ef_bucket: int, degraded: bool,
             tracer.add_span("bucket_pad", admitted, t_exec_ns, req=rid,
                             bucket=bucket, n=n)
             tracer.add_span("device_exec", t_exec_ns, t_done_ns, req=rid,
-                            ef=ef_bucket, storage=group[2])
+                            ef=ef_bucket, storage=group[2],
+                            batch=timings["batch"])
             tracer.add_span("topk_slice", t_done_ns, t_slice_ns, req=rid)
             tracer.add_span("resolve", t_slice_ns, t_res_ns, req=rid)
     return service_s

@@ -27,7 +27,7 @@ from repro_torch.obs import PeriodicExporter, QuantileSketch, Registry, Tracer
 
 SEARCH_COUNTERS = ("search.queries", "search.hops", "search.lanes_evaluated",
                    "search.dims_touched", "search.dims_possible",
-                   "search.payload_bytes", "search.residual_fetches")
+                   "search.residual_fetches")
 
 
 @pytest.fixture(autouse=True, scope="module")
