@@ -35,14 +35,28 @@ compaction in pop order; ``src[j]`` is the pop slot whose neighbor list slot
 ``j`` came from.  Results carry a leading query axis, as the JAX ``vmap``
 output does.
 
+The untraced loop runs its hop as an in-place step (:func:`_step`) on the
+chunk's state tensors, which also writes the termination test into a
+one-element flag.  On a CUDA device with the port's kernels, a searcher
+captures that step as a CUDA graph once per query chunk, after the descent
+and on the chunk's own state, and replays it until the flag reads False
+(:class:`HopGraph`): the host issues one graph launch and one flag read a
+hop.  Everywhere else (the CPU, the plain ``"jnp"`` backend, the traced
+loop) the same step runs eagerly (:func:`_eager_loop`), so both run the one
+hop.
+
 With the process tracer on (``repro_torch.obs``), a chunk's loop records a
-``search.beam`` span (attribute ``hops``: the loop's iterations) and marks
-each termination readback ``search.sync`` and each hop ``search.hop``
-(profiler ranges, no spans); the descent records ``search.descend``.
+``search.beam`` span (attributes ``hops``: the loop's iterations, and
+``graph_hops``: those that were graph replays) and marks each termination
+readback ``search.sync``, each hop ``search.hop`` and a capture
+``search.capture`` (profiler ranges, no spans); the descent records
+``search.descend``.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
+import threading
 
 import numpy as np
 import torch
@@ -301,9 +315,144 @@ def _init_state(q, entries, vectors, cfg: SearchConfig, n_words, dfl_cfg=None):
     return beam_ids, beam_d, expanded, visited
 
 
+def _active(beam_d, expanded):
+    """The loop's termination test, a 0-d bool tensor: True while some query
+    of the chunk has an unexpanded beam entry."""
+    return ((~expanded) & (beam_d < BIG)).any()
+
+
+def _step(state, counters, flag, hop, cnt_keys):
+    """One hop of the untraced loop, in place: the beam, its distances and
+    its expanded mask take the hop's (the hop updates the visited bitmap in
+    place itself), ``counters`` add the hop's counters (``cnt_keys``, then
+    1 for each query that popped a node), and ``flag`` takes the termination
+    test of the new beam.  It writes no tensor but these, so a CUDA graph
+    captured from it replays on the same state."""
+    new, t = hop(state)
+    for old, upd in zip(state[:3], new[:3]):
+        old.copy_(upd)
+    counters += torch.stack([t[k] for k in cnt_keys]
+                            + [(t["node"] >= 0).any(1).to(torch.int32)], dim=1)
+    flag.copy_(_active(state[1], state[2]))
+
+
+def _eager_loop(step, flag) -> tuple[int, int]:
+    """Runs ``step`` until ``flag`` reads False, each hop's ops launched one
+    by one.  Returns (hops, graph replays), the latter 0."""
+    n = 0
+    while True:
+        # the host waits here for the device: the hop's one sync
+        with tracer.mark("search.sync"):
+            if not flag.item():
+                return n, 0
+        with tracer.mark("search.hop"):
+            step()
+        n += 1
+
+
+class _CollectorPause:
+    """Pauses Python's automatic garbage collection while any capture is
+    under way (the collector is process-wide, so the count is too): a
+    collection in a capturing thread could free an unreachable searcher's
+    CUDA graph, and destroying a graph there fails the capture."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = 0
+        self._was_enabled = False
+
+    def __enter__(self):
+        with self._lock:
+            if self._n == 0:
+                self._was_enabled = gc.isenabled()
+                gc.disable()
+            self._n += 1
+
+    def __exit__(self, *exc):
+        with self._lock:
+            self._n -= 1
+            if self._n == 0 and self._was_enabled:
+                gc.enable()
+        return False
+
+
+_collector_paused = _CollectorPause()
+
+
+class HopGraph:
+    """A searcher's CUDA-graph replay of the untraced loop's hop.
+
+    :meth:`loop` captures the step once per query chunk, on the chunk's own
+    state, and replays it until the flag reads False.  The side stream the
+    capture is recorded on and the memory pool that the captured hop's
+    temporaries come from live as long as the searcher, so the pool's blocks
+    stay cached from one call's capture to the next.  The graph holds no
+    tensor: the state is freed at the chunk's end, as in the eager loop, and
+    the graph is only kept until the next capture replaces it, since torch's
+    allocator does not capture into a pool that no live graph holds.  Calls
+    from several threads (a serving batcher restarted by its watchdog) take
+    turns on the searcher's stream and pool; the capture is thread-local, so
+    other threads go on launching their own work meanwhile."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self._graph = None
+        self._lock = threading.Lock()
+
+    def _capture(self, step):
+        """The graph of one ``step`` (which does not run) and each kernel's
+        launches in it (``kops.launch_counts`` order)."""
+        before = kops.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream), _collector_paused:
+            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                step()
+            finally:
+                # ends the capture on an error too, so this thread may go on
+                graph.capture_end()
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        return graph, [a - b for a, b in zip(kops.launch_counts(), before)]
+
+    def loop(self, step, flag) -> tuple[int, int]:
+        """Replays ``step`` until ``flag`` reads False; a chunk with nothing
+        active captures nothing.  Returns (hops, graph replays), equal."""
+        with tracer.mark("search.sync"):
+            if not flag.item():
+                return 0, 0
+        with self._lock:
+            with tracer.mark("search.capture"):
+                graph, per_hop = self._capture(step)
+            self._graph = graph     # holds the pool until the next capture
+            n = 0
+            while True:
+                with tracer.mark("search.hop"):
+                    graph.replay()
+                n += 1
+                with tracer.mark("search.sync"):
+                    if not flag.item():
+                        break
+        # the capture counted each kernel's launches once, the replays ran n
+        kops.add_launches(per_hop, n - 1)
+        return n, n
+
+
+def _captures(device: torch.device, cfg: SearchConfig, trace: bool) -> bool:
+    """Whether a searcher replays its hop as a CUDA graph: on a CUDA device,
+    on the untraced path (the traced loop keeps every hop's trace), and with
+    the port's kernels (the plain ``"jnp"`` versions are the comparison run
+    and are not held to capture's rules)."""
+    return device.type == "cuda" and not trace and cfg.fee_backend != "jnp"
+
+
 def _search_batch(vectors, adj, fee, tombstone, queries, entries, *,
-                  cfg: SearchConfig, trace: bool, dfl_cfg=None) -> dict:
-    """Beam search of one query batch; dict of (Q, ...) tensors."""
+                  cfg: SearchConfig, trace: bool, loop, dfl_cfg=None) -> dict:
+    """Beam search of one query batch; dict of (Q, ...) tensors.  ``loop``
+    runs the untraced path's hops: :func:`_eager_loop` or a
+    :meth:`HopGraph.loop`."""
     n_words = -(-_lead(vectors).shape[0] // 32)
     # counters carried through the early-terminating path, hops last (a hop
     # where at least one node was popped)
@@ -313,35 +462,24 @@ def _search_batch(vectors, adj, fee, tombstone, queries, entries, *,
         state = _init_state(queries, entries, vectors, cfg, n_words, dfl_cfg)
         hop = lambda s: _hop_body(s, vectors, adj, queries, fee, cfg, dfl_cfg,
                                   tombstone)
-        n_hops = 0
         if trace:
             hops = []
             for _ in range(cfg.hops()):
                 with tracer.mark("search.hop"):
                     state, t = hop(state)
                 hops.append(t)
-            n_hops = len(hops)
+            n_hops, n_graph = len(hops), 0
             traces = {k: torch.stack([t[k] for t in hops], dim=1) for k in hops[0]}
         else:
             counters = torch.zeros((queries.shape[0], len(cnt_keys) + 1),
                                    dtype=torch.int64, device=queries.device)
-            while True:
-                _, beam_d, expanded, _ = state
-                # the host waits here for the device: the hop's one sync
-                with tracer.mark("search.sync"):
-                    active = bool(((~expanded) & (beam_d < BIG)).any())
-                if not active:
-                    break
-                with tracer.mark("search.hop"):
-                    state, t = hop(state)
-                    counters += torch.stack(
-                        [t[k] for k in cnt_keys]
-                        + [(t["node"] >= 0).any(1).to(torch.int32)], dim=1)
-                n_hops += 1
+            flag = _active(state[1], state[2])
+            n_hops, n_graph = loop(
+                lambda: _step(state, counters, flag, hop, cnt_keys), flag)
         beam_ids, beam_d = state[0], state[1]
         if tombstone is not None:
             beam_ids, beam_d = exclude_dead(beam_ids, beam_d, tombstone)
-        beam.set(hops=n_hops)
+        beam.set(hops=n_hops, graph_hops=n_graph)
     out = dict(ids=beam_ids[:, : cfg.k], dists=beam_d[:, : cfg.k])
     if trace:
         out["trace"] = traces
@@ -386,15 +524,20 @@ def make_searcher(vectors, adj, cfg: SearchConfig,
                          f"cover {n_rows} rows")
     dfl_cfg = dfloat_cfg if packed or tiered else None
     chunk = max(1, _VISITED_BYTES // (4 * -(-n_rows // 32)))
+    graph = HopGraph(dev) if _captures(dev, cfg, trace) else None
+    loop = _eager_loop if graph is None else graph.loop
 
     def search(queries, entries):
         queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
         entries = torch.as_tensor(entries, dtype=torch.int32, device=dev)
+        if graph is not None and cfg.use_fee:
+            # built outside the capture, which may not wait for their copy
+            kops.fee_tables(dfl_cfg, cfg.seg, dev)
         # an empty batch is one chunk of no queries: (0, k) results
         outs = [_search_batch(vectors, adj, fp, tombstone,
                               queries[s: s + chunk].contiguous(),
                               entries[s: s + chunk], cfg=cfg, trace=trace,
-                              dfl_cfg=dfl_cfg)
+                              dfl_cfg=dfl_cfg, loop=loop)
                 for s in range(0, max(queries.shape[0], 1), chunk)]
         if len(outs) == 1:
             return outs[0]

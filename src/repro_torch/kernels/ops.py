@@ -162,3 +162,34 @@ def dfloat_unpack_tiered_rows(xc, xr, coarse_cfg: dfl.DfloatConfig,
 
 # the Dfloat process module over a whole packed DB is the same decode
 dfloat_unpack = dfloat_unpack_rows
+
+
+# the wrappers whose ``.launches`` count their kernel's launches
+COUNTED = (fee_kernel.fee_distance, fee_kernel.fee_distance_packed,
+           fee_kernel.fee_distance_skipdma, fee_kernel.fee_distance_packed_skipdma,
+           fee_kernel.fee_distance_tiered, unpack_kernel.dfloat_unpack)
+
+
+def launch_counts() -> list[int]:
+    """Each kernel's launches so far, in :data:`COUNTED` order."""
+    return [f.launches for f in COUNTED]
+
+
+def add_launches(counts, times: int) -> None:
+    """Add ``times`` x ``counts`` (:func:`launch_counts` order) to the
+    kernels' launch counts: a CUDA graph's replay launches its captured
+    kernels without passing through their wrappers."""
+    for f, n in zip(COUNTED, counts):
+        f.launches += n * times
+
+
+def fee_tables(dfloat_cfg, seg: int, device) -> None:
+    """Build, where not cached yet, the device tables that the packed and
+    tiered FEE kernels read for rows of ``dfloat_cfg`` (a layout, a
+    (coarse, residual) pair of layouts, or None for f32 rows, which need
+    none).  Building one waits for its copy to the device, which a CUDA
+    graph capture may not do, so a search that captures builds them first."""
+    if isinstance(dfloat_cfg, tuple):
+        fee_kernel._tier_tables(*dfloat_cfg, seg, device)
+    elif dfloat_cfg is not None:
+        fee_kernel._burst_tables(dfloat_cfg, seg, device)

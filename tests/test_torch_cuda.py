@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_beam_cases as beam_cases
 from fee_cases import inputs
 from repro_torch.core import dfloat as dfl
 from repro_torch.kernels import dfloat_unpack as unpack_kernel
@@ -544,6 +545,178 @@ def test_cuda_sharded_mutable_tombstones(cuda_unit):
         got = sm.search(db.queries, params)
         assert np.array_equal(got.ids, want.ids) and np.array_equal(got.dists, want.dists)
         assert not np.isin(got.ids, dead).any()
+
+
+@pytest.fixture(scope="module")
+def cuda_units():
+    """{metric: (data, a Dfloat index built on the card)} for both unit
+    data sets, l2 and ip."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.index import Index, IndexSpec
+
+    dev = torch.device("cuda")
+    out = {}
+    for metric, name in (("l2", "unit"), ("ip", "unit_ip")):
+        db = make_dataset(name, device=dev, cache=False)
+        out[metric] = db, Index.build(
+            db, IndexSpec.for_db(db, m=8, dfloat_recall_target=0.8), device=dev)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tomb", [False, True])
+@pytest.mark.parametrize("storage", beam_cases.STORAGES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_graph_loop_equals_eager_loop(cuda_units, metric, storage, tomb):
+    """The beam loop replayed as a CUDA graph (``HopGraph.loop``) against
+    the eager loop on the same inputs, at Q = 0, 1, 4, 32 and 1000: ids,
+    distances and every counter bit for bit, each kernel's launch count the
+    same (one FEE launch a hop), and the ``search.beam`` span's
+    ``graph_hops`` equal to its ``hops`` (0 on the eager loop)."""
+    from repro_torch import obs
+    from repro_torch.core import search
+    from repro_torch.index import SearchParams
+
+    db, idx = cuda_units[metric]
+    fee = {"f32": fee_kernel.fee_distance, "packed": fee_kernel.fee_distance_packed,
+           "tiered": fee_kernel.fee_distance_tiered}[storage]
+    params = SearchParams(ef=48, k=10, storage=storage)
+    words = beam_cases.dead_words(db.n, 7) if tomb else None
+    rng = np.random.default_rng(11)
+    graph = search.HopGraph(torch.device("cuda"))
+    obs.enable_tracing()
+    try:
+        for n_q in (0, 1, 4, 32, 1000):
+            q = db.queries[np.arange(n_q) % len(db.queries)]
+            q = q + 0.01 * rng.standard_normal(q.shape).astype(np.float32)
+            args, kw = beam_cases.beam_inputs(idx, q, params, torch.device("cuda"),
+                                              tombstone=words)
+            runs, spans = {}, {}
+            # eager first: it builds the kernels' device tables, which a
+            # searcher builds before its capture
+            for name, loop in (("eager", search._eager_loop), ("graph", graph.loop)):
+                obs.tracer.clear()
+                before = ops.launch_counts()
+                out = search._search_batch(*args, **kw, loop=loop)
+                torch.cuda.synchronize()
+                runs[name] = out, [a - b for a, b in zip(ops.launch_counts(), before)]
+                spans[name], = [s.attrs for s in obs.tracer.spans()
+                                if s.name == "search.beam"]
+            (want, eager_n), (got, graph_n) = runs["eager"], runs["graph"]
+            beam_cases.assert_same(got, want, f"Q={n_q}")
+            assert graph_n == eager_n, n_q
+            hops = int(want["hops"].max()) if n_q else 0
+            assert eager_n[ops.COUNTED.index(fee)] == hops, n_q
+            assert spans["graph"] == dict(q=n_q, hops=hops, graph_hops=hops), n_q
+            assert spans["eager"] == dict(q=n_q, hops=hops, graph_hops=0), n_q
+            if tomb and n_q:
+                dead = np.flatnonzero(np.unpackbits(
+                    words.view(np.uint8), bitorder="little")[:db.n])
+                assert not np.isin(got["ids"].cpu().numpy(), dead).any()
+    finally:
+        obs.disable_tracing()
+        obs.tracer.clear()
+
+
+@pytest.mark.cuda
+def test_cuda_searchers_capture_where_they_should(cuda_units):
+    """A local searcher on the card replays its hop (``graph_hops`` equal to
+    ``hops`` in every ``search.beam`` span); a traced one (the ndpsim path)
+    and one on the plain ``"jnp"`` backend run eagerly (``graph_hops`` 0)."""
+    import dataclasses
+
+    from repro_torch import obs
+    from repro_torch.index import SearchParams
+
+    db, idx = cuda_units["l2"]
+    base = SearchParams(ef=48, k=10, storage="packed")
+    cases = {"auto": base, "trace": dataclasses.replace(base, trace=True),
+             "jnp": dataclasses.replace(base, fee_backend="jnp")}
+    obs.enable_tracing()
+    try:
+        beams = {}
+        for name, params in cases.items():
+            obs.tracer.clear()
+            idx.searcher("local", params)(db.queries)
+            beams[name] = [s.attrs for s in obs.tracer.spans() if s.name == "search.beam"]
+    finally:
+        obs.disable_tracing()
+        obs.tracer.clear()
+    assert beams["auto"] and all(b["graph_hops"] == b["hops"] > 0 for b in beams["auto"])
+    assert beams["trace"] and beams["jnp"]
+    assert all(b["graph_hops"] == 0 for b in beams["trace"] + beams["jnp"])
+
+
+@pytest.mark.cuda
+def test_cuda_capture_survives_eager_collections(cuda_units, monkeypatch):
+    """A searcher dropped in a reference cycle keeps its captured graph until
+    the collector frees it.  Here it becomes garbage inside another
+    searcher's capture, with the collector at its most eager: it must not be
+    freed there (a graph destroyed in the capturing thread fails the
+    capture), and the search gives the results of one run before."""
+    import gc
+
+    from repro_torch.core import search
+    from repro_torch.index import SearchParams, backends
+
+    db, idx = cuda_units["l2"]
+    params = SearchParams(ef=48, k=10, storage="packed")
+    dev = torch.device("cuda")
+    old = backends.local_searcher(idx, params, device=dev)
+    held = [old]
+    want = old(db.queries)                   # it now holds a captured graph
+    del old
+    body = search._hop_body
+
+    def dropping(*a, **k):
+        if held and torch.cuda.is_current_stream_capturing():
+            cycle = [held.pop()]
+            cycle.append(cycle)              # the old searcher's last holder
+            del cycle
+            [[] for _ in range(100)]         # allocations that start collections
+        return body(*a, **k)
+
+    monkeypatch.setattr(search, "_hop_body", dropping)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        res = backends.local_searcher(idx, params, device=dev)(db.queries)
+    finally:
+        gc.set_threshold(*threshold)
+        gc.collect()
+    assert not held
+    assert np.array_equal(res.ids, want.ids)
+    assert np.array_equal(res.dists, want.dists)
+
+
+@pytest.mark.cuda
+def test_cuda_searcher_shared_by_threads(cuda_units):
+    """Eight threads (more than the machine's cores) call one capturing
+    searcher at once, with a short switch interval: they take turns on its
+    graph's stream and pool, and every result equals the serial one."""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.index import SearchParams
+
+    db, idx = cuda_units["l2"]
+    run = idx.searcher("local", SearchParams(ef=48, k=10, storage="packed"))
+    sizes = [1, 4, 32, 64, 7, 16, 2, 48]
+    want = {n: run(db.queries[:n]) for n in sizes}
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with ThreadPoolExecutor(len(sizes)) as pool:
+            futs = [(n, pool.submit(run, db.queries[:n])) for n in sizes * 3]
+            got = [(n, f.result(timeout=120)) for n, f in futs]
+    finally:
+        sys.setswitchinterval(old)
+    for n, res in got:
+        assert np.array_equal(res.ids, want[n].ids), n
+        assert np.array_equal(res.dists, want[n].dists), n
+        assert np.array_equal(res.hops, want[n].hops), n
 
 
 @pytest.mark.cuda

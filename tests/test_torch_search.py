@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import repro.index as jix
+import torch_beam_cases as beam_cases
 from repro.core import search as jsearch
 from repro.data.synthetic import VecDB as JaxVecDB
 from repro_torch.core import search as tsearch
@@ -257,3 +258,90 @@ def test_result_shapes_and_dtypes_match_jax(pair, storage, trace, n_q):
     for key in ("ids", "dists", "hops", "n_eval", "dims"):
         assert getattr(got, key).shape == np.asarray(getattr(want, key)).shape, key
         assert getattr(got, key).dtype == np.asarray(getattr(want, key)).dtype, key
+
+
+# ---------------------------------------------------------------------------
+# the untraced loop's in-place step and the choice of its loop
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tomb", [False, True])
+@pytest.mark.parametrize("storage", beam_cases.STORAGES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_in_place_step_equals_the_loop_it_replaced(pair, metric, storage, tomb):
+    """The untraced loop's in-place step, run eagerly, gives the ids,
+    distances and counters (hops, n_eval, dims, n_resid) of the loop it
+    replaced, where each hop made a new state and the host computed the
+    termination test between hops: bit for bit, on the same inputs."""
+    db, _, port, _, port_dead, _ = pair[metric]
+    idx = port_dead if tomb else port
+    params = dataclasses.replace(BASE, storage=storage)
+    args, kw = beam_cases.beam_inputs(idx, db.queries, params, torch.device("cpu"))
+    got = tsearch._search_batch(*args, **kw, loop=tsearch._eager_loop)
+    beam_cases.assert_same(got, beam_cases.parent_loop(*args, **kw))
+    assert int(got["hops"].max()) > 0
+    if tomb:
+        assert args[3] is not None
+
+
+CAPTURE_CASES = {          # (device, SearchConfig fields, trace) -> captures
+    "cuda": ("cuda", {}, False, True),
+    "cuda-skip-dma": ("cuda", dict(fee_backend="pallas_skip_dma"), False, True),
+    "cuda-no-fee": ("cuda", dict(use_fee=False, storage="packed"), False, True),
+    "cpu": ("cpu", {}, False, False),
+    "cuda-trace": ("cuda", {}, True, False),
+    "cuda-jnp": ("cuda", dict(fee_backend="jnp"), False, False),
+}
+
+
+@pytest.mark.parametrize("case", list(CAPTURE_CASES))
+def test_capture_decision_reads_device_trace_and_backend(case):
+    """The hop is captured as a CUDA graph only for CUDA tensors, on the
+    untraced path, with the port's kernels: never on the CPU, for
+    ``trace=True`` or for the plain ``"jnp"`` backend (a device object
+    needs no card)."""
+    dev, fields, trace, want = CAPTURE_CASES[case]
+    cfg = tsearch.SearchConfig(**fields)
+    assert tsearch._captures(torch.device(dev), cfg, trace) is want
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_graph_hops_is_zero_on_the_cpu(pair, trace):
+    """On the CPU every ``search.beam`` span reports ``graph_hops`` 0 beside
+    its ``hops`` (the loop's iterations: the most hops a query took)."""
+    from repro_torch import obs
+
+    db, _, port, *_ = pair["l2"]
+    obs.enable_tracing()
+    obs.tracer.clear()
+    try:
+        res = port.search(db.queries, dataclasses.replace(BASE, trace=trace))
+        beams = [s.attrs for s in obs.tracer.spans() if s.name == "search.beam"]
+    finally:
+        obs.disable_tracing()
+        obs.tracer.clear()
+    assert len(beams) == 1 and beams[0]["graph_hops"] == 0
+    want = BASE.to_config(port.metric, port.seg).hops() if trace else int(res.hops.max())
+    assert beams[0]["hops"] == want
+
+
+def test_collector_pause_nests_and_restores():
+    """The capture's pause of the garbage collector nests (overlapping
+    captures) and restores the collector's state as it found it."""
+    import gc
+
+    pause = tsearch._CollectorPause()
+    assert gc.isenabled()
+    with pause:
+        assert not gc.isenabled()
+        with pause:
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with pause:
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

@@ -1,0 +1,81 @@
+"""The beam loop's inputs built from an index, for tests that call
+``repro_torch.core.search._search_batch`` itself (so that its two loops run
+on the same state), and the untraced loop written as it ran before its hop
+became an in-place step.  No JAX here: the CUDA tests use it too."""
+import numpy as np
+import torch
+
+from repro_torch.core import search
+from repro_torch.core.fee import FeeParams
+from repro_torch.index import backends
+
+STORAGES = ("f32", "packed", "tiered")
+CNT_KEYS = ("n_eval", "dims", "n_resid")
+
+
+def dead_words(n: int, seed: int) -> np.ndarray:
+    """A tombstone of 5% of ``n`` rows, as (ceil(n/32),) uint32 words."""
+    rng = np.random.default_rng(seed)
+    dead = rng.choice(n, n // 20, replace=False)
+    words = np.zeros(-(-n // 32), np.uint32)
+    np.bitwise_or.at(words, dead >> 5, np.uint32(1) << (dead & 31).astype(np.uint32))
+    return words
+
+
+def beam_inputs(idx, queries, params, device, tombstone=None):
+    """``(args, kwargs)`` of ``search._search_batch`` for the raw
+    ``queries`` on ``idx``, as its local searcher makes them: the storage's
+    rows, the adjacency, the FEE parameters, the tombstone (``tombstone``
+    words, else the index's own), the transformed queries and their entries
+    after the descent."""
+    cfg = params.to_config(idx.metric, idx.seg)
+    vectors = idx.device_db(params.use_dfloat, params.storage, device)
+    dfl_cfg = backends._dfloat_cfg(idx, params)
+    q = torch.from_numpy(idx.transform_queries(
+        np.asarray(queries, np.float32).reshape(-1, idx.dim))).to(device)
+    rows = backends._descent_rows(params, vectors, dfl_cfg, device)
+    entries = torch.as_tensor(search.descend_entry(rows, idx.graph, q, idx.metric),
+                              device=device)
+    fee = FeeParams.coerce(backends._fee_params(idx, params, None, device),
+                           device=device)
+    tomb = (idx.device_tombstone(device) if tombstone is None
+            else torch.from_numpy(tombstone.view(np.int32)).to(device))
+    args = (vectors, idx.device_adjacency(device), fee, tomb, q, entries)
+    return args, dict(cfg=cfg, trace=False, dfl_cfg=dfl_cfg)
+
+
+def parent_loop(vectors, adj, fee, tombstone, queries, entries, *, cfg,
+                trace, dfl_cfg):
+    """The untraced beam loop before its hop was an in-place step: each hop
+    returns a new state, the counters are summed from its trace, and the
+    termination test is computed and read between hops.  Returns
+    ``_search_batch``'s untraced dict."""
+    assert not trace
+    keys = CNT_KEYS if cfg.storage == "tiered" else CNT_KEYS[:2]
+    n_words = -(-search._lead(vectors).shape[0] // 32)
+    state = search._init_state(queries, entries, vectors, cfg, n_words, dfl_cfg)
+    counters = torch.zeros((queries.shape[0], len(keys) + 1), dtype=torch.int64,
+                           device=queries.device)
+    while True:
+        _, beam_d, expanded, _ = state
+        if not bool(((~expanded) & (beam_d < search.BIG)).any()):
+            break
+        state, t = search._hop_body(state, vectors, adj, queries, fee, cfg,
+                                    dfl_cfg, tombstone)
+        counters += torch.stack([t[k] for k in keys]
+                                + [(t["node"] >= 0).any(1).to(torch.int32)], dim=1)
+    beam_ids, beam_d = state[0], state[1]
+    if tombstone is not None:
+        beam_ids, beam_d = search.exclude_dead(beam_ids, beam_d, tombstone)
+    out = dict(ids=beam_ids[:, : cfg.k], dists=beam_d[:, : cfg.k])
+    *cnt, out["hops"] = counters.to(torch.int32).unbind(1)
+    out.update(zip(keys, cnt))
+    return out
+
+
+def assert_same(got: dict, want: dict, what: str = "") -> None:
+    """Every tensor of the two result dicts equal, bit for bit."""
+    assert set(got) == set(want), what
+    for k in want:
+        assert got[k].dtype == want[k].dtype, (what, k)
+        assert torch.equal(got[k], want[k]), (what, k)
