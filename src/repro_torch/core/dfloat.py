@@ -11,14 +11,20 @@ Three layers:
                    Algorithm-1 search over a 1M-row DB runs on the card.
   * pack/unpack  — real bitstream packing into uint32 words (the deployable
                    format; the CUDA kernels in ``kernels/`` decode the same
-                   layout).  :func:`unpack_rows` is the torch decoder: it
-                   carries words as int64 masked to 32 bits, because torch's
-                   uint32 has no shifts or additions.
+                   layout).  :func:`pack_db` packs in torch, on the
+                   input's device; :func:`unpack_rows` is the torch decoder.
+                   Both carry words as int64 masked to 32 bits, because
+                   torch's uint32 has no shifts or additions.
   * search_config— Algorithm 1: binary search on burst count + enumeration of
                    valid non-increasing width layouts under a recall target.
 
-The numpy host layer is the JAX package's, unchanged, so configs, packed
-words and layouts are bit-identical between the two packages.
+The numpy host layer is the JAX package's, unchanged, and the torch paths
+give its bits, so configs, packed words and layouts are bit-identical
+between the two packages.
+
+:func:`pack_db` and the torch path of :func:`emulate_db` work in row chunks
+of ``CHUNK_BYTES`` of f32 input: their int64 temporaries take twice that
+each, so a whole 1M x 960 matrix at once would hold tens of GB of them.
 """
 from __future__ import annotations
 
@@ -30,6 +36,14 @@ import torch
 
 F32_MAN = 23
 F32_BIAS = 127
+CHUNK_BYTES = 1 << 28
+
+
+def _row_chunks(db: torch.Tensor):
+    """Row slices of ``db`` of at most ``CHUNK_BYTES`` of f32 each."""
+    step = max(1, CHUNK_BYTES // (4 * max(db.shape[1], 1)))
+    return (slice(r, min(r + step, db.shape[0])) for r in range(0, db.shape[0], step))
+
 
 # ---------------------------------------------------------------------------
 # config
@@ -234,10 +248,11 @@ def emulate_db(db, cfg: DfloatConfig):
     device, bit-identical to the host path."""
     if isinstance(db, torch.Tensor):
         out = torch.empty(db.shape, dtype=torch.float32, device=db.device)
-        for s in cfg.segments:
-            sl = slice(s.start, s.start + s.n_dims)
-            fld = _encode_fields_t(db[:, sl], s.n_exp, s.n_man, s.bias)
-            out[:, sl] = decode_field_t(fld, s.n_exp, s.n_man, s.bias)
+        for rows in _row_chunks(db):
+            for s in cfg.segments:
+                sl = slice(s.start, s.start + s.n_dims)
+                fld = _encode_fields_t(db[rows, sl], s.n_exp, s.n_man, s.bias)
+                out[rows, sl] = decode_field_t(fld, s.n_exp, s.n_man, s.bias)
         return out
     out = np.empty_like(db, dtype=np.float32)
     for s in cfg.segments:
@@ -326,24 +341,36 @@ def burst_layout(cfg: DfloatConfig):
     return out, word
 
 
-def pack_db(db: np.ndarray, cfg: DfloatConfig) -> np.ndarray:
-    """Pack (N, D) f32 into (N, W) uint32 with the burst-aligned layout."""
+def pack_db(db, cfg: DfloatConfig) -> np.ndarray:
+    """Pack (N, D) f32 into (N, W) uint32 with the burst-aligned layout.
+
+    ``db`` is a numpy array or a tensor, packed on its device; the words come
+    back as a host array.  Each chunk of rows carries its words as int64 and
+    ORs in one field position of every burst of a segment at a time."""
+    if not isinstance(db, torch.Tensor):
+        db = torch.from_numpy(np.ascontiguousarray(db, np.float32))
     n, d = db.shape
     assert d == cfg.dim
     layout, w_words = burst_layout(cfg)
     wpb = cfg.burst_bits // 32
-    out = np.zeros((n, w_words), np.uint64)  # u64 accumulate avoids carries
-    for s, word0, nb, per in layout:
-        fld = encode_fields(db[:, s.start : s.start + s.n_dims], s.n_exp, s.n_man, s.bias)
-        for j in range(s.n_dims):
-            burst, local = divmod(j, per)
-            bit = local * s.width
-            wi, ofs = word0 + burst * wpb + (bit >> 5), bit & 31
-            v = fld[:, j].astype(np.uint64) << np.uint64(ofs)
-            out[:, wi] |= v & np.uint64(0xFFFFFFFF)
-            if ofs + s.width > 32:
-                out[:, wi + 1] |= v >> np.uint64(32)
-    return out.astype(np.uint32)
+    out = np.empty((n, w_words), np.uint32)
+    for rows in _row_chunks(db):
+        x = db[rows]
+        words = torch.zeros((x.shape[0], w_words), dtype=torch.int64, device=db.device)
+        for s, word0, nb, per in layout:
+            fld = _encode_fields_t(x[:, s.start: s.start + s.n_dims], s.n_exp,
+                                   s.n_man, s.bias)
+            bursts = words[:, word0: word0 + nb * wpb].unflatten(1, (nb, wpb))
+            for local in range(min(per, s.n_dims)):
+                v = fld[:, local::per]              # this position, burst by burst
+                bit = local * s.width
+                wi, ofs = bit >> 5, bit & 31
+                bursts[:, : v.shape[1], wi] |= (v << ofs) & _U32
+                if ofs + s.width > 32:
+                    bursts[:, : v.shape[1], wi + 1] |= v >> (32 - ofs)
+        words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+        out[rows] = words.cpu().numpy().view(np.uint32)
+    return out
 
 
 def packed_words(cfg: DfloatConfig) -> int:

@@ -256,8 +256,8 @@ class Index:
 
         # Dfloat search (Alg. 1) with a recall proxy on sampled train queries
         t0 = time.perf_counter()
+        rot = torch.from_numpy(db_rot).to(dev)
         if spec.dfloat_recall_target is not None:
-            rot = torch.from_numpy(db_rot).to(dev)
             sample_q = tq_rot[: min(64, len(tq_rot))]
             gt = exact_topk(rot, sample_q, spec.recall_k, spec.metric, device=dev)
 
@@ -280,7 +280,7 @@ class Index:
                                                  spec.dfloat_recall_target)
         else:
             dfloat_cfg = dfl.fp32_config(d)
-        db_packed = dfl.pack_db(db_rot, dfloat_cfg)
+        db_packed = dfl.pack_db(rot, dfloat_cfg)
         t["dfloat_search_s"] = time.perf_counter() - t0
 
         return cls(spec=spec, spca=spca, fee=fee, dfloat_cfg=dfloat_cfg,

@@ -17,8 +17,10 @@ import torch
 from repro_torch.core import dfloat as dfl
 
 # (C rows, D dims, seg): the cases of the JAX package's kernel tests (C not a
-# multiple of any tile, D=960, seg=32)
-SHAPES = [(7, 32, 8), (100, 128, 16), (129, 128, 16), (64, 960, 32), (256, 64, 16)]
+# multiple of any tile, D=960, seg=32), and gist's 960 dims in 60 segments of
+# 16 over C rows that fill no tile
+SHAPES = [(7, 32, 8), (100, 128, 16), (129, 128, 16), (64, 960, 32), (256, 64, 16),
+          (97, 960, 16)]
 # seg % 4 != 0: the f32 kernel reads these one float at a time
 SCALAR_SHAPES = [(50, 32, 2), (33, 36, 6)]
 RTOL, ATOL = 3e-5, 2e-4

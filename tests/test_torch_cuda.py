@@ -51,6 +51,15 @@ from repro_torch.kernels.check import (SCALAR_SHAPES, SHAPES, compare_fee, near_
                                        random_layout)
 
 
+# gist's shape, scored on the main path through one run of 12-bit fields
+# (the layout Algorithm 1 picks there: 96 bursts, 384 words a row)
+GIST = (97, 960, 16)
+
+
+def gist_layout(x):
+    return dfl.make_config(GIST[1], [(12, dfl.EXP_BITS[12], GIST[1])], x)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -199,7 +208,7 @@ def test_cuda_packed_kernels_every_pitch_and_load_path(cuda, c, d, seg, metric):
     whole row as its coarse tier."""
     rng, x, args, mask = _lanes(cuda, c, d, seg, metric)
     kw = dict(seg=seg, metric=metric, lane_mask=mask)
-    cfg, _ = random_layout(rng, d, x)
+    cfg = gist_layout(x) if (c, d, seg) == GIST else random_layout(rng, d, x)[0]
     packed = torch.from_numpy(dfl.pack_db(x, cfg).view(np.int32)).to(cuda)
     xq = unpack_kernel.dfloat_unpack(packed, cfg)
     want = fee_kernel.fee_distance(xq, *args, **kw)
@@ -295,13 +304,17 @@ def _unpack_routes(cuda, packed, cfg, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,d,seg", SHAPES + SCALAR_SHAPES + [(100, 128, 16)])
 def test_cuda_unpack_every_route(cuda, c, d, seg):
-    """Random layouts at the kernel tests' shapes (D = 960 included), and
-    the main path's one 16-bit run (W = 64 words, so pitch W + 4 is 68)."""
+    """Random layouts at the kernel tests' shapes (D = 960 included), the
+    main path's one 16-bit run (W = 64 words, so pitch W + 4 is 68), and
+    gist's one 12-bit run (W = 384)."""
     rng = np.random.default_rng(c + d + seg)
     x = rng.standard_normal((c, d)).astype(np.float32)
     if (c, d, seg) == (100, 128, 16):
         cfg = dfl.make_config(d, [(16, 5, d)], x)
         assert dfl.packed_words(cfg) == 64
+    elif (c, d, seg) == GIST:
+        cfg = gist_layout(x)
+        assert dfl.packed_words(cfg) == 384
     else:
         cfg, _ = random_layout(rng, d, x)
     assert unpack_kernel.by_burst(cfg)
@@ -315,6 +328,28 @@ def test_cuda_unpack_every_route(cuda, c, d, seg):
         for ids in (torch.zeros(0, dtype=torch.int64), torch.tensor([0]), torch.tensor([3])):
             got = unpack_kernel.dfloat_unpack(rows, cfg, ids=ids.to(cuda))
             assert torch.equal(got.cpu(), ref.dfloat_unpack_ref(host, cfg, ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runs", [None, [(21, 6, 333), (14, 5, 400), (12, 4, 227)]])
+def test_cuda_pack_and_emulate_in_row_chunks(cuda, monkeypatch, runs):
+    """``pack_db`` and ``emulate_db`` of a tensor on the card, in row chunks
+    of 8 rows (the last one short), at gist's width: gist's one 12-bit run,
+    and three runs whose fields straddle words and whose last bursts are
+    partial.  The card's words are the CPU's, which the CPU tests hold to the
+    JAX package's words; the host layer decodes them to the host emulation,
+    and the card's emulation is that too, bit for bit."""
+    c, d, _ = GIST
+    x = (np.random.default_rng(11).standard_normal((c, d)) * 2).astype(np.float32)
+    cfg = gist_layout(x) if runs is None else dfl.make_config(d, runs, x)
+    want = dfl.pack_db(x, cfg)                           # one chunk, on the CPU
+    host_em = dfl.emulate_db(x, cfg).view(np.uint32)
+    monkeypatch.setattr(dfl, "CHUNK_BYTES", 4 * d * 8)
+    xt = torch.from_numpy(x).to(cuda)
+    words = dfl.pack_db(xt, cfg)
+    assert np.array_equal(words, want)
+    assert np.array_equal(dfl.unpack_db(words, cfg).view(np.uint32), host_em)
+    assert np.array_equal(dfl.emulate_db(xt, cfg).cpu().numpy().view(np.uint32), host_em)
 
 
 @pytest.mark.cuda

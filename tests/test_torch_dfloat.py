@@ -55,12 +55,31 @@ def test_host_layer_bit_exact(draw):
     em = dfl.emulate_db(x, cfg)
     assert np.array_equal(_u32(em), _u32(jdfl.emulate_db(x, jcfg)))
     assert np.array_equal(_u32(dfl.unpack_db(packed, cfg)), _u32(em))
-    # the torch paths: emulation on tensors, and the decoder
+    # the torch paths: emulation and packing on tensors, and the decoder
     xt = torch.from_numpy(x)
     assert dfl.make_config(d, runs, xt) == cfg
     assert np.array_equal(_u32(dfl.emulate_db(xt, cfg).numpy()), _u32(em))
+    assert np.array_equal(dfl.pack_db(xt, cfg), packed)
     got = dfl.unpack_rows(torch.from_numpy(packed.view(np.int32)), cfg)
     assert np.array_equal(_u32(got.numpy()), _u32(em))
+
+
+def test_tensor_paths_in_row_chunks(monkeypatch):
+    """The tensor paths of ``emulate_db`` and ``pack_db`` work in row chunks
+    (so a 1M x 960 matrix never holds its int64 temporaries whole): chunks
+    of a few rows, the last one short, give the host path's bits, on layouts
+    whose fields straddle words and whose last burst is partial."""
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((37, 100)) * 2).astype(np.float32)
+    xt = torch.from_numpy(x)
+    monkeypatch.setattr(dfl, "CHUNK_BYTES", 4 * 100 * 8)       # 8 rows a chunk
+    for runs in ([(12, 4, 100)], [(21, 6, 33), (14, 5, 40), (12, 4, 27)],
+                 [(32, 8, 100)], [(18, 6, 61), (16, 5, 39)]):
+        cfg = dfl.make_config(100, runs, x)
+        jcfg = jdfl.make_config(100, runs, x)
+        assert np.array_equal(dfl.pack_db(xt, cfg), jdfl.pack_db(x, jcfg))
+        assert np.array_equal(_u32(dfl.emulate_db(xt, cfg).numpy()),
+                              _u32(jdfl.emulate_db(x, jcfg)))
 
 
 def test_torch_decoder_matches_jax_decoder():
@@ -120,3 +139,41 @@ def test_search_config_matches_reference():
     assert _key(cfg) == _key(jcfg)
     assert log == jlog
     assert cfg.bursts_per_vector() < dfl.fp32_config(64).bursts_per_vector()
+
+
+def test_gist_layout_bit_exact():
+    """The layout Algorithm 1 picks for gist-shaped rows (960 dims, the
+    steepest spectrum of the presets): one run of 12-bit fields, ten to a
+    burst, 96 bursts a row.  Config, burst layout, packed words, emulation
+    and both decoders equal the JAX package's bit for bit."""
+    from repro_torch.data.synthetic import DATASETS, _generate
+
+    spec = dataclasses.replace(DATASETS["gist"], n=1200, n_queries=32, gt_k=10)
+    data = _generate(spec, device="cpu")
+    x = data["vectors"]
+    q = data["queries"][:32]
+    d = x.shape[1]
+    top10 = lambda rows: np.argsort(torch.cdist(torch.from_numpy(q), rows).numpy(),
+                                    1)[:, :10]
+    gt = top10(torch.from_numpy(x))
+
+    def recall(emul):
+        return np.mean([len(set(a) & set(b)) / 10 for a, b in zip(top10(emul), gt)])
+
+    cfg, _ = dfl.search_config(torch.from_numpy(x), recall, 0.9)
+    runs = [(12, dfl.EXP_BITS[12], d)]
+    assert cfg == dfl.make_config(d, runs, x)
+    assert cfg.bursts_per_vector() == 96 and dfl.packed_words(cfg) == 384
+    jcfg = jdfl.make_config(d, runs, x)
+    assert _key(jcfg) == _key(cfg)
+    assert _layout_key(jdfl.burst_layout(jcfg)[0]) == _layout_key(dfl.burst_layout(cfg)[0])
+    packed = dfl.pack_db(x, cfg)
+    assert np.array_equal(packed, jdfl.pack_db(x, jcfg))
+    assert np.array_equal(dfl.pack_db(torch.from_numpy(x), cfg), packed)
+    em = dfl.emulate_db(x, cfg)
+    assert np.array_equal(_u32(em), _u32(jdfl.emulate_db(x, jcfg)))
+    assert np.array_equal(_u32(dfl.unpack_db(packed, cfg)), _u32(em))
+    got = dfl.unpack_rows(torch.from_numpy(packed.view(np.int32)), cfg)
+    assert np.array_equal(_u32(got.numpy()), _u32(em))
+    assert np.array_equal(_u32(got.numpy()),
+                          _u32(jdfl.unpack_rows_jnp(jnp.asarray(packed), jcfg)))
