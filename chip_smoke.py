@@ -42,7 +42,11 @@ Phases, each of which fails the run when its check fails:
    ``tiered_loads``), the two packed kernels and the tiered kernel over
    rows at a 256 B and a 272 B pitch (``pitch_ms``), and ``dfloat_unpack``
    gathering the upper level's rows itself against torch's gather followed
-   by the kernel (``unpack_gather_ms``);
+   by the kernel (``unpack_gather_ms``); the hop's ``frontier`` kernel
+   against its plain version at Q = 10,000, E*M = 80, L = 40 over a 1M-row
+   visited bitmap, bit for bit, each timed (``frontier``; a phase-5b-only
+   run: ``python3 -c "import sys, torch; sys.path[:0] = ['src', '.'];
+   import chip_smoke as cs; cs.frontier_phase(torch.device('cuda'))"``);
 6. ``torch.profiler`` over one f32 and one packed search batch: device-busy
    time against the batch's wall time, and the costliest kernels;
 7. the ndpsim backend (``searcher("ndpsim")``) over the first 128 queries
@@ -216,7 +220,8 @@ F32_FLOPS = 67e12                  # H100 SXM float32 outside the tensor cores
 REPEATS = 3                        # timed search calls, each over every query
 SLEEP_CYCLES = 100_000_000         # ~50 ms at the H100's clocks: time to queue a timed run
 PORT_KERNELS = ("fee_f32_kernel", "fee_packed_kernel", "dfloat_unpack_kernel",
-                "fee_skipdma_f32_kernel", "fee_skipdma_packed_kernel", "fee_tiered_kernel")
+                "fee_skipdma_f32_kernel", "fee_skipdma_packed_kernel", "fee_tiered_kernel",
+                "frontier_kernel")
 # kernels whose staged words must stay in registers (no local-memory frame)
 NO_FRAME_KERNELS = ("fee_packed_kernel", "fee_skipdma_packed_kernel", "fee_tiered_kernel",
                     "fee_skipdma_f32_kernel")
@@ -706,6 +711,57 @@ def main_path_kernels(index, db, res64, dev, launches):
     log(json.dumps({"pitch_ms": pitch}))
     del wide
     return rows
+
+
+def frontier_phase(dev, n_q=10_000, n=1_000_000, e=4, m=20, width=40, sets=8):
+    """The hop's ``frontier`` kernel against its plain version at the batch
+    cells' shape: Q queries popping E nodes of an N-row graph of degree M
+    (random rows, 10% -1 pads, 80% of pops selected), a (Q, ceil(N/32))
+    visited bitmap with 1% of its bits set, L lanes kept.  Bit for bit on
+    every output and the visited words, then each timed with CUDA events
+    over ``sets`` sets of pops in turn (the kernel's visited update leaves
+    each later call nearly as much fresh work: ~L bits of N a call), beside
+    the bound of its bytes: the pops, E*M ids and as many visited words
+    read, L lanes of 4 + 4 + 1 + 4 B and the fresh lanes' words written, at
+    4 B a word and at the 32 B sector a random word costs."""
+    from repro_torch.kernels import frontier as frontier_kernel
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    adj = torch.randint(0, n, (n, m), generator=g, device=dev, dtype=torch.int32)
+    adj[torch.rand((n, m), generator=g, device=dev) < 0.1] = -1
+    words = -(-n // 32)
+    visited = torch.where(torch.rand((n_q, words), generator=g, device=dev) < 0.3,
+                          1 << torch.randint(0, 31, (n_q, words), generator=g, device=dev),
+                          0).to(torch.int32)
+    pops = []
+    for _ in range(sets):
+        sel = torch.rand((n_q, e), generator=g, device=dev) < 0.8
+        nodes = torch.where(sel, torch.randint(0, n, (n_q, e), generator=g, device=dev), -1)
+        pops.append((nodes.to(torch.int32), sel))
+    for nodes, sel in pops[:2]:
+        vk, vp = visited.clone(), visited.clone()
+        got = frontier_kernel.frontier(nodes, sel, adj, vk, width)
+        want = ref.frontier_ref(nodes, sel, adj, vp, width)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)) and torch.equal(vk, vp),
+              "frontier (main path shape): kernel differs from its plain version")
+        fresh = int(got[2].sum())
+        del vk, vp
+    turn = iter(range(1 << 30))
+    step = lambda fn: (lambda: fn(*pops[next(turn) % sets], adj, visited, width))
+    times = {"kernel_ms": [], "plain_ms": []}
+    for key in ("kernel_ms", "plain_ms", "plain_ms", "kernel_ms"):     # in turns
+        fn = frontier_kernel.frontier if key == "kernel_ms" else ref.frontier_ref
+        times[key].append(time_ms(step(fn)))
+    slots = n_q * e * m
+    out_b = n_q * width * (4 + 4 + 1 + 4)
+    exact = n_q * e * (4 + 1) + slots * 4 * 2 + out_b + fresh * 4
+    sectors = n_q * e * (4 + 1) + n_q * e * 96 + slots * 32 + out_b + fresh * 32
+    log(json.dumps({"frontier": {
+        "q": n_q, "n": n, "e": e, "m": m, "width": width, "fresh_lanes": fresh,
+        **times, "bound_ms": bound(exact, 0)[0], "sector_bound_ms": bound(sectors, 0)[0],
+        "bytes": exact, "sector_bytes": sectors}}))
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -2437,6 +2493,7 @@ def main(argv=None) -> int:
     kernels["dfloat_unpack"] = unpack_kernel.dfloat_unpack
     index, db, res64, launches, rep = main_path(args, dev, kernels)
     rows = main_path_kernels(index, db, res64, dev, launches)
+    frontier_phase(dev)
     for storage in ("f32", "packed"):
         profile_search(index, db, dev, rep[storage]["p50_batch_ms"], storage)
     log(json.dumps({"reduced": {"ndpsim_queries": NDPSIM_QUERIES,

@@ -28,6 +28,12 @@ lanes whose FEE sequence ran past the coarse tier.
 The visited bitmap is (Q, ceil(N/32)) int32 words; the visited update adds
 each fresh id's bit, which is an OR only because fresh ids are deduped first.
 
+The frontier step of a hop (the neighbour gather, the visited test, the
+dedup, the compaction and the visited update) runs through
+``kops.frontier``: on a CUDA device, under any backend but ``"jnp"`` and
+traced or not, the one ``frontier`` kernel (``kernels/csrc/frontier.cu``);
+on the CPU and under ``"jnp"``, its plain version ``ref.frontier_ref``.
+
 Trace layout (``trace=True``, ``cfg.hops()`` hops), per query: ``node`` is
 (H, E) — the up-to-``expand`` nodes popped per hop (-1 pad) — and
 ``nbrs``/``segs``/``cand_d``/``src`` are (H, L), the frontier batch after the
@@ -46,8 +52,9 @@ loop) the same step runs eagerly (:func:`_eager_loop`), so both run the one
 hop.
 
 With the process tracer on (``repro_torch.obs``), a chunk's loop records a
-``search.beam`` span (attributes ``hops``: the loop's iterations, and
-``graph_hops``: those that were graph replays) and marks each termination
+``search.beam`` span (attributes ``hops``: the loop's iterations,
+``graph_hops``: those that were graph replays, and ``frontier_hops``: those
+whose frontier step ran the ``frontier`` kernel) and marks each termination
 readback ``search.sync``, each hop ``search.hop`` and a capture
 ``search.capture`` (profiler ranges, no spans); the descent records
 ``search.descend``.
@@ -242,26 +249,14 @@ def _hop_body(state, vectors, adj, q, fee: FeeParams | None, cfg: SearchConfig,
     e, m = min(cfg.expand, ef), adj.shape[1]
     nodes, sel, expanded = pop_frontier(beam_ids, beam_d, expanded, e)
 
-    # ---- one fused gather of all E neighbor lists
-    nbrs = adj[nodes.clamp(min=0).long()].reshape(n_q, e * m)
-    valid = (nbrs >= 0) & sel.repeat_interleave(m, dim=1)
-    safe = nbrs.clamp(min=0)
-    seen = (torch.gather(visited, 1, (safe >> 5).long()) & _bits(safe)) != 0
-    fresh = valid & ~seen & first_occurrence_mask(safe, valid)
-
-    # ---- fresh-first frontier compaction (expand > 1): a stable partition,
-    # overflowing fresh candidates are dropped unmarked (still discoverable
-    # through other parents on later hops)
-    if e > 1:
-        keep = torch.argsort(fresh.to(torch.int8), dim=1, descending=True,
-                             stable=True)[:, : compact_width(m, e, cfg.compact)]
-        nbrs, safe, fresh = (torch.gather(t, 1, keep) for t in (nbrs, safe, fresh))
-        src = (keep // m).to(torch.int32)
-    else:
-        src = (torch.arange(e * m, device=nbrs.device, dtype=torch.int32) // m
-               ).expand(n_q, -1)
-    visited.scatter_add_(1, (safe >> 5).long(),
-                         torch.where(fresh, _bits(safe), 0))
+    # ---- the frontier step: gather all E neighbor lists, dedup against the
+    # visited bitmap and across the hop, keep a fresh-first stable partition
+    # of L lanes (overflowing fresh candidates are dropped unmarked: still
+    # discoverable through other parents on later hops) and mark the kept
+    # fresh ids visited, in place
+    nbrs, safe, fresh, src = kops.frontier(nodes, sel, adj, visited,
+                                           compact_width(m, e, cfg.compact),
+                                           backend=cfg.fee_backend)
 
     # tombstoned lanes stay visited-marked but are never scored or inserted
     live = fresh if tombstone is None else fresh & ~tombstone_lookup(tombstone, safe)
@@ -479,7 +474,9 @@ def _search_batch(vectors, adj, fee, tombstone, queries, entries, *,
         beam_ids, beam_d = state[0], state[1]
         if tombstone is not None:
             beam_ids, beam_d = exclude_dead(beam_ids, beam_d, tombstone)
-        beam.set(hops=n_hops, graph_hops=n_graph)
+        beam.set(hops=n_hops, graph_hops=n_graph,
+                 frontier_hops=n_hops if kops.frontier_on_card(
+                     queries.device, cfg.fee_backend) else 0)
     out = dict(ids=beam_ids[:, : cfg.k], dists=beam_d[:, : cfg.k])
     if trace:
         out["trace"] = traces

@@ -16,6 +16,10 @@
   * ``jnp`` — the plain PyTorch versions on either device (the comparison
     run of ``chip_smoke.py``).
 
+The beam search hop's frontier step (:func:`frontier`) follows the same
+rule: the ``frontier`` kernel for CUDA tensors under any backend but
+``jnp``, traced or not; its plain version on the CPU and under ``jnp``.
+
 A default call never takes the plain version on a CUDA tensor.  The
 tombstone fold (the reference's ``_fold_lane_mask``) is ``ref.fold_lane_mask``
 on the plain path and happens inside the kernels on the card.  One contract
@@ -33,6 +37,7 @@ import torch
 from repro_torch.core import dfloat as dfl
 from repro_torch.kernels import dfloat_unpack as unpack_kernel
 from repro_torch.kernels import fee_distance as fee_kernel
+from repro_torch.kernels import frontier as frontier_kernel
 from repro_torch.kernels import ref
 
 BACKENDS = ("auto", "jnp", "pallas", "pallas_skip_dma")
@@ -164,10 +169,28 @@ def dfloat_unpack_tiered_rows(xc, xr, coarse_cfg: dfl.DfloatConfig,
 dfloat_unpack = dfloat_unpack_rows
 
 
+def frontier_on_card(device: torch.device, backend: str) -> bool:
+    """Whether :func:`frontier` launches the ``frontier`` kernel for a hop
+    on ``device``: off the CPU, under any backend but ``jnp``."""
+    return not _plain(backend) and device.type != "cpu"
+
+
+def frontier(nodes, sel, adj, visited, width: int, *, backend: str = "auto"):
+    """One hop's frontier step (``kernels/frontier.py``): the neighbour ids
+    of the popped ``nodes`` (Q, E) deduped against ``visited`` and across
+    the hop, compacted fresh-first to ``width`` lanes -> (nbrs, safe, fresh,
+    src), each (Q, width); the kept fresh ids are marked in ``visited`` in
+    place.  Bit-identical on either route."""
+    fn = (frontier_kernel.frontier if frontier_on_card(visited.device, backend)
+          else ref.frontier_ref)
+    return fn(nodes, sel, adj, visited, width)
+
+
 # the wrappers whose ``.launches`` count their kernel's launches
 COUNTED = (fee_kernel.fee_distance, fee_kernel.fee_distance_packed,
            fee_kernel.fee_distance_skipdma, fee_kernel.fee_distance_packed_skipdma,
-           fee_kernel.fee_distance_tiered, unpack_kernel.dfloat_unpack)
+           fee_kernel.fee_distance_tiered, unpack_kernel.dfloat_unpack,
+           frontier_kernel.frontier)
 
 
 def launch_counts() -> list[int]:

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of every CUDA kernel in this package.
 
 They run on any device.  The kernel wrappers take them for CPU tensors, the
-CPU tests hold them against the JAX package's kernels and oracles, and
+CPU tests hold them against the JAX package's kernels and oracles (and
+:func:`frontier_ref` against the JAX package's hop pieces), and
 ``chip_smoke.py`` holds each kernel against them on the card.  The skip-DMA
 kernels compute the contracts of ``fee_distance_gather_ref`` and
 ``fee_distance_packed_gather_ref``; they differ only in which bytes they
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.core import dfloat as dfl
 from repro_torch.core import fee as fee_mod
+from repro_torch.core import search
 
 
 def fee_distance_ref(q, x, threshold, alpha, beta, margin, *, seg,
@@ -153,3 +155,36 @@ def dfloat_unpack_ref(packed, cfg: dfl.DfloatConfig, ids=None):
     ok = (ids >= 0) & (ids < packed.shape[0])
     rows = dfl.unpack_rows(packed[torch.where(ok, ids, 0)], cfg)
     return torch.where(ok[:, None], rows, 0.0)
+
+
+def frontier_ref(nodes, sel, adj, visited, width):
+    """Plain version of the ``frontier`` kernel: one hop's frontier step,
+    what ``core.search._hop_body`` does between the pop and the scoring.
+
+    ``nodes``/``sel`` (Q, E) are the popped nodes and which pops are real,
+    ``adj`` (N, M) the base adjacency, ``visited`` (Q, ceil(N/32)) int32
+    words.  Returns (nbrs, safe, fresh, src), each (Q, width): the gathered
+    ids deduped against ``visited`` and across the batch
+    (``search.first_occurrence_mask``, both arms), in a stable fresh-first
+    partition cut to ``width`` lanes (E == 1 keeps the E*M = M slots in
+    order), with each lane's pop slot.  Overflowing fresh candidates are
+    dropped unmarked (still discoverable through other parents on later
+    hops); the kept fresh ids' bits are added to ``visited`` in place."""
+    n_q, e = nodes.shape
+    m = adj.shape[1]
+    nbrs = adj[nodes.clamp(min=0).long()].reshape(n_q, e * m)
+    valid = (nbrs >= 0) & sel.repeat_interleave(m, dim=1)
+    safe = nbrs.clamp(min=0)
+    seen = (torch.gather(visited, 1, (safe >> 5).long()) & search._bits(safe)) != 0
+    fresh = valid & ~seen & search.first_occurrence_mask(safe, valid)
+    if e > 1:
+        keep = torch.argsort(fresh.to(torch.int8), dim=1, descending=True,
+                             stable=True)[:, :width]
+        nbrs, safe, fresh = (torch.gather(t, 1, keep) for t in (nbrs, safe, fresh))
+        src = (keep // m).to(torch.int32)
+    else:
+        src = (torch.arange(e * m, device=nbrs.device, dtype=torch.int32) // m
+               ).expand(n_q, -1)
+    visited.scatter_add_(1, (safe >> 5).long(),
+                         torch.where(fresh, search._bits(safe), 0))
+    return nbrs, safe, fresh, src

@@ -608,11 +608,13 @@ def test_cuda_graph_loop_equals_eager_loop(cuda_units, metric, storage, tomb):
     """The beam loop replayed as a CUDA graph (``HopGraph.loop``) against
     the eager loop on the same inputs, at Q = 0, 1, 4, 32 and 1000: ids,
     distances and every counter bit for bit, each kernel's launch count the
-    same (one FEE launch a hop), and the ``search.beam`` span's
-    ``graph_hops`` equal to its ``hops`` (0 on the eager loop)."""
+    same (one FEE and one frontier launch a hop), and the ``search.beam``
+    span's ``graph_hops`` equal to its ``hops`` (0 on the eager loop) and
+    its ``frontier_hops`` equal to its ``hops`` on both loops."""
     from repro_torch import obs
     from repro_torch.core import search
     from repro_torch.index import SearchParams
+    from repro_torch.kernels import frontier as frontier_kernel
 
     db, idx = cuda_units[metric]
     fee = {"f32": fee_kernel.fee_distance, "packed": fee_kernel.fee_distance_packed,
@@ -644,8 +646,11 @@ def test_cuda_graph_loop_equals_eager_loop(cuda_units, metric, storage, tomb):
             assert graph_n == eager_n, n_q
             hops = int(want["hops"].max()) if n_q else 0
             assert eager_n[ops.COUNTED.index(fee)] == hops, n_q
-            assert spans["graph"] == dict(q=n_q, hops=hops, graph_hops=hops), n_q
-            assert spans["eager"] == dict(q=n_q, hops=hops, graph_hops=0), n_q
+            assert eager_n[ops.COUNTED.index(frontier_kernel.frontier)] == hops, n_q
+            assert spans["graph"] == dict(q=n_q, hops=hops, graph_hops=hops,
+                                          frontier_hops=hops), n_q
+            assert spans["eager"] == dict(q=n_q, hops=hops, graph_hops=0,
+                                          frontier_hops=hops), n_q
             if tomb and n_q:
                 dead = np.flatnonzero(np.unpackbits(
                     words.view(np.uint8), bitorder="little")[:db.n])
@@ -655,11 +660,126 @@ def test_cuda_graph_loop_equals_eager_loop(cuda_units, metric, storage, tomb):
         obs.tracer.clear()
 
 
+FRONTIER_SHAPES = [(1, 20), (4, 20), (8, 16), (16, 20)]   # E*M 20, 80, 128, 320
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [1, 37, 10_000])
+@pytest.mark.parametrize("e,m", FRONTIER_SHAPES)
+def test_cuda_frontier_kernel_matches_plain(cuda, e, m, n_q):
+    """The ``frontier`` kernel against its plain version on the card, bit
+    for bit: the compacted ids, clamped ids, fresh lanes, pop slots and the
+    visited words after the call, at E*M = 20 (E = 1: slot order), 80, 128
+    (``first_occurrence_mask``'s pairwise arm) and 320 (its sort arm), at
+    compact 0.5 and 1.0, over ids repeated within and across pops, -1 pads,
+    unselected pops and visited bits set beforehand; with Q <= 37 also over
+    ids of a 2^20-row pool (visited words far into the row)."""
+    from repro_torch.core.search import compact_width
+    from repro_torch.kernels import frontier as frontier_kernel
+
+    pools = [None] if n_q > 37 else [None, 1 << 20]
+    for n in pools:
+        nodes, sel, adj, visited = (torch.from_numpy(a).to(cuda) for a in
+                                    beam_cases.frontier_inputs(n_q, e, m, n_q + e * m, n))
+        for compact in (0.5, 1.0):
+            width = compact_width(m, e, compact)
+            vis_k, vis_p = visited.clone(), visited.clone()
+            before = frontier_kernel.frontier.launches
+            got = frontier_kernel.frontier(nodes, sel, adj, vis_k, width)
+            want = ref.frontier_ref(nodes, sel, adj, vis_p, width)
+            torch.cuda.synchronize()
+            assert frontier_kernel.frontier.launches == before + 1
+            for name, a, b in zip(("nbrs", "safe", "fresh", "src"), got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b), (name, n, compact)
+            assert torch.equal(vis_k, vis_p), (n, compact)
+            assert n_q == 1 or int(got[2].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_frontier_rejects_bad_inputs(cuda):
+    """The kernel's wrapper raises on what the kernel does not take, and
+    never falls back to the plain version on the card."""
+    from repro_torch.kernels import frontier as frontier_kernel
+
+    nodes, sel, adj, visited = (torch.from_numpy(a).to(cuda)
+                                for a in beam_cases.frontier_inputs(4, 4, 20, 0))
+    fn = frontier_kernel.frontier
+    with pytest.raises(TypeError, match="nodes"):
+        fn(nodes.long(), sel, adj, visited, 40)
+    with pytest.raises(TypeError, match="adj"):
+        fn(nodes, sel, torch.cat([adj, adj], 1)[:, :20], visited, 40)
+    with pytest.raises(ValueError, match="slots"):
+        fn(nodes, sel, torch.zeros((adj.shape[0], 300), dtype=torch.int32, device=cuda),
+           visited, 600)
+    for width in (0, 81):
+        with pytest.raises(ValueError, match="width"):
+            fn(nodes, sel, adj, visited, width)
+    with pytest.raises(ValueError, match="width"):
+        fn(nodes[:, :1].contiguous(), sel[:, :1].contiguous(), adj, visited, 10)
+    with pytest.raises(ValueError, match="queries"):
+        fn(nodes, sel, adj, visited[:2], 40)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trace", [False, True])
+@pytest.mark.parametrize("expand", [1, 4, 16])
+def test_cuda_frontier_search_equals_cpu_on_exact_data(cuda, expand, trace):
+    """A search on the card, its hop captured (untraced) or eager (traced),
+    with the frontier and FEE kernels, against the same search on the CPU
+    (every step's plain version): ids, distances, counters and the trace bit
+    for bit.  Rows and queries are small integers and the FEE parameters
+    the identity, so every distance and partial sum is exact in float32
+    whatever the order of the sums; E*M = 20, 80 and 320 over a random
+    graph with -1 pads.  The card's ``search.beam`` span reports every hop
+    in ``frontier_hops``, the CPU's none."""
+    from repro_torch import obs
+    from repro_torch.core import search
+    from repro_torch.core.fee import FeeParams
+    from repro_torch.kernels import frontier as frontier_kernel
+
+    rng = np.random.default_rng(expand)
+    n, d, m, n_q = 4096, 32, 20, 300
+    x = rng.integers(-8, 9, (n, d)).astype(np.float32)
+    q = rng.integers(-8, 9, (n_q, d)).astype(np.float32)
+    adj = rng.integers(0, n, (n, m)).astype(np.int32)
+    adj[rng.random((n, m)) < 0.05] = -1
+    entries = rng.integers(0, n, n_q).astype(np.int32)
+    cfg = search.SearchConfig(ef=32, k=10, seg=8, use_fee=True, expand=expand)
+    out, beams = {}, {}
+    obs.enable_tracing()
+    try:
+        for dev in ("cpu", "cuda"):
+            obs.tracer.clear()
+            before = frontier_kernel.frontier.launches
+            run = search.make_searcher(torch.from_numpy(x).to(dev),
+                                       torch.from_numpy(adj).to(dev), cfg, trace=trace,
+                                       fee=FeeParams.identity(d // 8, device=dev))
+            res = run(torch.from_numpy(q).to(dev), torch.from_numpy(entries).to(dev))
+            out[dev] = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+                            else v.cpu()) for k, v in res.items()}
+            beams[dev], = [s.attrs for s in obs.tracer.spans() if s.name == "search.beam"]
+            launched = frontier_kernel.frontier.launches - before
+            assert launched == (beams[dev]["hops"] if dev == "cuda" else 0), dev
+    finally:
+        obs.disable_tracing()
+        obs.tracer.clear()
+    got, want = out["cuda"], out["cpu"]
+    if trace:
+        beam_cases.assert_same(got.pop("trace"), want.pop("trace"), "trace")
+    beam_cases.assert_same(got, want)
+    hops = beams["cuda"]["hops"]
+    assert hops > 0 and beams["cuda"]["frontier_hops"] == hops
+    assert beams["cuda"]["graph_hops"] == (0 if trace else hops)
+    assert beams["cpu"]["frontier_hops"] == 0
+
+
 @pytest.mark.cuda
 def test_cuda_searchers_capture_where_they_should(cuda_units):
     """A local searcher on the card replays its hop (``graph_hops`` equal to
     ``hops`` in every ``search.beam`` span); a traced one (the ndpsim path)
-    and one on the plain ``"jnp"`` backend run eagerly (``graph_hops`` 0)."""
+    and one on the plain ``"jnp"`` backend run eagerly (``graph_hops`` 0).
+    The replayed and the traced one run the frontier kernel
+    (``frontier_hops`` equal to ``hops``), the plain one does not."""
     import dataclasses
 
     from repro_torch import obs
@@ -682,6 +802,9 @@ def test_cuda_searchers_capture_where_they_should(cuda_units):
     assert beams["auto"] and all(b["graph_hops"] == b["hops"] > 0 for b in beams["auto"])
     assert beams["trace"] and beams["jnp"]
     assert all(b["graph_hops"] == 0 for b in beams["trace"] + beams["jnp"])
+    # the frontier kernel runs traced or not, and not on the plain backend
+    assert all(b["frontier_hops"] == b["hops"] for b in beams["auto"] + beams["trace"])
+    assert all(b["frontier_hops"] == 0 for b in beams["jnp"])
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ import dataclasses
 import json
 import zlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +30,8 @@ from repro.data.synthetic import VecDB as JaxVecDB
 from repro_torch.core import search as tsearch
 from repro_torch.data.synthetic import DATASETS, _generate, recall_at_k
 from repro_torch.index import SearchParams, from_arrays
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 RTOL, ATOL = 3e-5, 2e-4
 BASE = SearchParams(ef=48, k=10)
@@ -157,6 +160,79 @@ def test_first_occurrence_mask_matches_jax(n):
         want = np.asarray(jsearch.first_occurrence_mask(jnp.asarray(ids[i]),
                                                         jnp.asarray(valid[i])))
         assert np.array_equal(got[i], want)
+
+
+def jax_frontier(nodes, sel, adj, visited, width):
+    """One query's frontier step as the JAX package's ``_hop_body`` writes
+    it, on its pieces: ``first_occurrence_mask``, the stable fresh-first
+    partition (``lax.top_k`` of the fresh mask) and the visited add."""
+    e, m = nodes.shape[0], adj.shape[1]
+    nbrs = adj[jnp.maximum(nodes, 0)].reshape(e * m)
+    valid = (nbrs >= 0) & jnp.repeat(sel, m)
+    safe = jnp.maximum(nbrs, 0)
+    bit = lambda ids: jnp.uint32(1) << (ids & 31).astype(jnp.uint32)
+    seen = (visited[safe >> 5] & bit(safe)) != 0
+    fresh = valid & ~seen & jsearch.first_occurrence_mask(safe, valid)
+    if e > 1:
+        _, keep = jax.lax.top_k(fresh.astype(jnp.float32), width)
+        nbrs, safe, fresh = nbrs[keep], safe[keep], fresh[keep]
+        src = keep // m
+    else:
+        src = jnp.arange(e * m, dtype=jnp.int32) // m
+    visited = visited.at[safe >> 5].add(jnp.where(fresh, bit(safe), jnp.uint32(0)))
+    return nbrs, safe, fresh, src, visited
+
+
+@pytest.mark.parametrize("compact", [0.5, 1.0])
+@pytest.mark.parametrize("e,m", [(1, 20), (4, 20), (8, 16), (16, 20)])
+def test_frontier_plain_twin_matches_jax_hop_pieces(e, m, compact):
+    """The frontier step's plain version (``ref.frontier_ref``, what the CPU
+    runs) against the JAX package's hop pieces, bit for bit, at E*M = 20
+    (E = 1: no compaction), 80, 128 (the pairwise arm of
+    ``first_occurrence_mask``) and 320 (its sort arm): the compacted ids,
+    clamped ids, fresh lanes, pop slots and the visited words after."""
+    nodes, sel, adj, visited = beam_cases.frontier_inputs(37, e, m, e * m)
+    width = tsearch.compact_width(m, e, compact)
+    assert width == jsearch.compact_width(m, e, compact)
+    t = torch.from_numpy
+    vis = t(visited.copy())
+    got = kref.frontier_ref(t(nodes), t(sel), t(adj), vis, width)
+    want = jax.vmap(jax_frontier, in_axes=(0, 0, None, 0, None))(
+        jnp.asarray(nodes), jnp.asarray(sel), jnp.asarray(adj),
+        jnp.asarray(visited.view(np.uint32)), width)
+    for name, a, b in zip(("nbrs", "safe", "fresh", "src"), got, want):
+        assert a.shape == (37, width), name
+        assert np.array_equal(a.numpy(), np.asarray(b)), name
+    assert np.array_equal(vis.numpy().view(np.uint32), np.asarray(want[4]))
+    assert int(got[2].sum()) > 0 and not bool(got[2][0].any())
+    if e > 1:
+        assert not np.array_equal(vis.numpy(), visited)
+
+
+@pytest.mark.parametrize("backend", kops.BACKENDS)
+def test_frontier_dispatch_takes_the_plain_twin_on_the_cpu(backend):
+    """``kops.frontier`` on CPU tensors is the plain version under every
+    backend, visited update included."""
+    nodes, sel, adj, visited = (torch.from_numpy(a)
+                                for a in beam_cases.frontier_inputs(5, 4, 20, 3))
+    vis_a, vis_b = visited.clone(), visited.clone()
+    got = kops.frontier(nodes, sel, adj, vis_a, 40, backend=backend)
+    want = kref.frontier_ref(nodes, sel, adj, vis_b, 40)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(vis_a, vis_b)
+    assert not kops.frontier_on_card(torch.device("cpu"), backend)
+
+
+FRONTIER_CASES = {"auto": True, "pallas": True, "pallas_skip_dma": True, "jnp": False}
+
+
+@pytest.mark.parametrize("backend", list(FRONTIER_CASES))
+def test_frontier_kernel_decision_reads_device_and_backend(backend):
+    """On a CUDA device the frontier step takes the kernel under every
+    backend but ``"jnp"`` (a device object needs no card), traced or not:
+    the decision reads nothing else."""
+    assert kops.frontier_on_card(torch.device("cuda"), backend) is FRONTIER_CASES[backend]
 
 
 def test_pop_and_merge_break_ties_like_jax():
@@ -323,6 +399,27 @@ def test_graph_hops_is_zero_on_the_cpu(pair, trace):
     assert len(beams) == 1 and beams[0]["graph_hops"] == 0
     want = BASE.to_config(port.metric, port.seg).hops() if trace else int(res.hops.max())
     assert beams[0]["hops"] == want
+
+
+@pytest.mark.parametrize("backend", ["auto", "jnp"])
+@pytest.mark.parametrize("trace", [False, True])
+def test_frontier_hops_is_zero_on_the_cpu(pair, trace, backend):
+    """On the CPU every ``search.beam`` span reports ``frontier_hops`` 0
+    beside its ``hops``: the frontier step ran its plain version."""
+    from repro_torch import obs
+
+    db, _, port, *_ = pair["l2"]
+    obs.enable_tracing()
+    obs.tracer.clear()
+    try:
+        port.search(db.queries[:16], dataclasses.replace(BASE, trace=trace,
+                                                         fee_backend=backend))
+        beams = [s.attrs for s in obs.tracer.spans() if s.name == "search.beam"]
+    finally:
+        obs.disable_tracing()
+        obs.tracer.clear()
+    assert len(beams) == 1 and beams[0]["hops"] > 0
+    assert beams[0]["frontier_hops"] == 0
 
 
 def test_collector_pause_nests_and_restores():

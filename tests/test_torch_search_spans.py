@@ -109,7 +109,8 @@ def test_beam_hops_match_the_loop(unit, traced, monkeypatch):
     monkeypatch.setattr(search_mod, "_hop_body", counted)
     host, res = _host_ranges(lambda: _search(unit))
     beam = next(s for s in traced.spans() if s.name == "search.beam")
-    assert beam.attrs == {"q": 40, "hops": len(n_body), "graph_hops": 0}
+    assert beam.attrs == {"q": 40, "hops": len(n_body), "graph_hops": 0,
+                          "frontier_hops": 0}
     names = Counter(n for n, _, _ in host)
     assert names["search.hop"] == len(n_body) == int(res.hops.max())
     assert names["search.sync"] == len(n_body) + 1

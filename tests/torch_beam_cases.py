@@ -22,6 +22,26 @@ def dead_words(n: int, seed: int) -> np.ndarray:
     return words
 
 
+def frontier_inputs(n_q, e, m, seed, n=None):
+    """Random inputs of one hop's frontier step, as numpy arrays (nodes
+    (Q, E) int32, sel (Q, E) bool, adj (n, M) int32, visited (Q, ceil(n/32))
+    int32 words): ids repeated within and across pops (drawn from ``n``
+    rows, by default a pool of ``max(64, E*M)``), -1 pads in the adjacency,
+    unselected pops (with Q > 1, a first query with none selected) and
+    visited bits set beforehand."""
+    rng = np.random.default_rng(seed)
+    n = n or max(64, e * m)
+    adj = rng.integers(0, n, (n, m)).astype(np.int32)
+    adj[rng.random((n, m)) < 0.1] = -1
+    sel = rng.random((n_q, e)) < 0.8
+    if n_q > 1:
+        sel[0] = False
+    nodes = np.where(sel, rng.integers(0, n, (n_q, e)), -1).astype(np.int32)
+    bits = rng.random((n_q, -(-n // 32) * 32)) < 0.3
+    visited = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
+    return nodes, sel, adj, visited
+
+
 def beam_inputs(idx, queries, params, device, tombstone=None):
     """``(args, kwargs)`` of ``search._search_batch`` for the raw
     ``queries`` on ``idx``, as its local searcher makes them: the storage's
