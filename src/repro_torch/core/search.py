@@ -51,6 +51,12 @@ hop.  Everywhere else (the CPU, the plain ``"jnp"`` backend, the traced
 loop) the same step runs eagerly (:func:`_eager_loop`), so both run the one
 hop.
 
+The descent to each query's entry (:func:`descend_entry`) runs on the
+device over the graph's upper levels (:class:`DeviceLevels`, held once per
+index by ``Index.device_levels``) and reads rows through :func:`row_reader`,
+the storage's one row rule, which the beam's first row and its exact
+(no-FEE) scoring read through too.
+
 With the process tracer on (``repro_torch.obs``), a chunk's loop records a
 ``search.beam`` span (attributes ``hops``: the loop's iterations,
 ``graph_hops``: those that were graph replays, and ``frontier_hops``: those
@@ -217,25 +223,20 @@ def _score(vectors, ids, q, threshold, fee: FeeParams | None, cfg: SearchConfig,
     makes the exit decisions and residual words move only for lanes that
     survive it.  ``alive`` (Q, L) marks the lanes to score — the others report
     rejected with ``segs_used == 0`` (for tiered: no residual fetch either)."""
-    packed = cfg.storage == "packed"
-    tiered = cfg.storage == "tiered"
     if cfg.use_fee:
         common = dict(seg=cfg.seg, metric=cfg.metric, backend=cfg.fee_backend,
                       lane_mask=alive)
         fp = (fee.alpha, fee.beta, fee.margin)
-        if tiered:
+        if cfg.storage == "tiered":
             return kops.fee_distance_tiered(vectors[0], vectors[1], ids, q,
                                             threshold, *fp,
                                             coarse_cfg=dfl_cfg[0],
                                             resid_cfg=dfl_cfg[1], **common)
-        if packed:
+        if cfg.storage == "packed":
             return kops.fee_distance_packed(vectors, ids, q, threshold, *fp,
                                             dfloat_cfg=dfl_cfg, **common)
         return kops.fee_distance(vectors, ids, q, threshold, *fp, **common)
-    n_q, lanes = ids.shape
-    flat = ids.long().reshape(-1)
-    rows = (decode_rows(vectors, flat, dfl_cfg, backend=cfg.fee_backend)
-            if packed or tiered else vectors[flat]).reshape(n_q, lanes, -1)
+    rows = row_reader(vectors, cfg.storage, dfl_cfg, cfg.fee_backend)(ids)
     score = fee_mod.exact_distance(q, rows, metric=cfg.metric)
     n_segs = rows.shape[-1] // cfg.seg
     return (score, ~alive,
@@ -243,7 +244,12 @@ def _score(vectors, ids, q, threshold, fee: FeeParams | None, cfg: SearchConfig,
 
 
 def _hop_body(state, vectors, adj, q, fee: FeeParams | None, cfg: SearchConfig,
-              dfl_cfg=None, tombstone=None):
+              dfl_cfg=None, tombstone=None, trace: bool = False):
+    """One hop of the beam loop -> (new state, counters): the (Q, C) int64
+    counters of :func:`counter_names`, then 1 for each query that popped a
+    node.  With ``trace=True`` the second value is the hop's trace dict
+    instead (``node``, ``nbrs``, ``segs``, ``cand_d``, ``src`` and the named
+    counters as int32)."""
     beam_ids, beam_d, expanded, visited = state
     n_q, ef = beam_ids.shape
     e, m = min(cfg.expand, ef), adj.shape[1]
@@ -269,21 +275,29 @@ def _hop_body(state, vectors, adj, q, fee: FeeParams | None, cfg: SearchConfig,
     beam_ids, beam_d, expanded = merge_beam(beam_ids, beam_d, expanded, safe,
                                             cand_d)
     segs = torch.where(live, segs_used, 0)
-    trace = dict(
+    cols = [live.sum(1), segs.sum(1) * cfg.seg]
+    if cfg.storage == "tiered":
+        # a lane crossed into the residual tier iff it survived every coarse
+        # checkpoint — exited lanes are never charged residual bytes
+        cols.append((segs > dfl_cfg[0].dim // cfg.seg).sum(1))
+    state = (beam_ids, beam_d, expanded, visited)
+    if not trace:
+        return state, torch.stack(cols + [(nodes >= 0).any(1)], dim=1)
+    return state, dict(
         node=nodes.to(torch.int32),
         nbrs=torch.where(live, nbrs, -1).to(torch.int32),
         segs=segs.to(torch.int32),
         cand_d=cand_d,                                   # BIG unless accepted
         src=torch.where(live, src, -1).to(torch.int32),  # parent of slot j
-        n_eval=live.sum(1).to(torch.int32),
-        dims=(segs.sum(1) * cfg.seg).to(torch.int32),
-    )
-    if cfg.storage == "tiered":
-        # a lane crossed into the residual tier iff it survived every coarse
-        # checkpoint — exited lanes are never charged residual bytes
-        n_coarse = dfl_cfg[0].dim // cfg.seg
-        trace["n_resid"] = (segs > n_coarse).sum(1).to(torch.int32)
-    return (beam_ids, beam_d, expanded, visited), trace
+        **{k: c.to(torch.int32) for k, c in zip(counter_names(cfg), cols)})
+
+
+def counter_names(cfg: SearchConfig) -> tuple[str, ...]:
+    """The per-query counters a search returns beside ``hops``, in the order
+    of a hop's counter columns: lanes scored, dims touched and, for tiered
+    storage, lanes that read the residual tier."""
+    return (("n_eval", "dims", "n_resid") if cfg.storage == "tiered"
+            else ("n_eval", "dims"))
 
 
 def _lead(vectors) -> torch.Tensor:
@@ -294,9 +308,7 @@ def _lead(vectors) -> torch.Tensor:
 
 def _init_state(q, entries, vectors, cfg: SearchConfig, n_words, dfl_cfg=None):
     n_q, ef = q.shape[0], cfg.ef
-    e = entries.long()
-    row = (vectors[e] if cfg.storage == "f32"
-           else decode_rows(vectors, e, dfl_cfg, backend=cfg.fee_backend))
+    row = row_reader(vectors, cfg.storage, dfl_cfg, cfg.fee_backend)(entries)
     d0 = fee_mod.exact_distance(q, row[:, None, :], metric=cfg.metric)[:, 0]
     dev = q.device
     beam_ids = torch.full((n_q, ef), -1, dtype=torch.int32, device=dev)
@@ -316,18 +328,16 @@ def _active(beam_d, expanded):
     return ((~expanded) & (beam_d < BIG)).any()
 
 
-def _step(state, counters, flag, hop, cnt_keys):
+def _step(state, counters, flag, hop):
     """One hop of the untraced loop, in place: the beam, its distances and
     its expanded mask take the hop's (the hop updates the visited bitmap in
-    place itself), ``counters`` add the hop's counters (``cnt_keys``, then
-    1 for each query that popped a node), and ``flag`` takes the termination
-    test of the new beam.  It writes no tensor but these, so a CUDA graph
-    captured from it replays on the same state."""
-    new, t = hop(state)
+    place itself), ``counters`` add the hop's counters, and ``flag`` takes
+    the termination test of the new beam.  It writes no tensor but these,
+    so a CUDA graph captured from it replays on the same state."""
+    new, cnt = hop(state)
     for old, upd in zip(state[:3], new[:3]):
         old.copy_(upd)
-    counters += torch.stack([t[k] for k in cnt_keys]
-                            + [(t["node"] >= 0).any(1).to(torch.int32)], dim=1)
+    counters += cnt
     flag.copy_(_active(state[1], state[2]))
 
 
@@ -449,28 +459,26 @@ def _search_batch(vectors, adj, fee, tombstone, queries, entries, *,
     runs the untraced path's hops: :func:`_eager_loop` or a
     :meth:`HopGraph.loop`."""
     n_words = -(-_lead(vectors).shape[0] // 32)
-    # counters carried through the early-terminating path, hops last (a hop
-    # where at least one node was popped)
-    cnt_keys = (("n_eval", "dims", "n_resid") if cfg.storage == "tiered"
-                else ("n_eval", "dims"))
+    names = counter_names(cfg)
     with tracer.span("search.beam", q=queries.shape[0]) as beam:
         state = _init_state(queries, entries, vectors, cfg, n_words, dfl_cfg)
-        hop = lambda s: _hop_body(s, vectors, adj, queries, fee, cfg, dfl_cfg,
-                                  tombstone)
+        hop = lambda s, **kw: _hop_body(s, vectors, adj, queries, fee, cfg,
+                                        dfl_cfg, tombstone, **kw)
         if trace:
             hops = []
             for _ in range(cfg.hops()):
                 with tracer.mark("search.hop"):
-                    state, t = hop(state)
+                    state, t = hop(state, trace=True)
                 hops.append(t)
             n_hops, n_graph = len(hops), 0
             traces = {k: torch.stack([t[k] for t in hops], dim=1) for k in hops[0]}
         else:
-            counters = torch.zeros((queries.shape[0], len(cnt_keys) + 1),
+            # the named counters, then the hops that popped a node
+            counters = torch.zeros((queries.shape[0], len(names) + 1),
                                    dtype=torch.int64, device=queries.device)
             flag = _active(state[1], state[2])
             n_hops, n_graph = loop(
-                lambda: _step(state, counters, flag, hop, cnt_keys), flag)
+                lambda: _step(state, counters, flag, hop), flag)
         beam_ids, beam_d = state[0], state[1]
         if tombstone is not None:
             beam_ids, beam_d = exclude_dead(beam_ids, beam_d, tombstone)
@@ -481,11 +489,11 @@ def _search_batch(vectors, adj, fee, tombstone, queries, entries, *,
     if trace:
         out["trace"] = traces
         out["hops"] = (traces["node"] >= 0).any(-1).sum(-1).to(torch.int32)
-        for k in cnt_keys:
+        for k in names:
             out[k] = traces[k].sum(-1).to(torch.int32)
     else:
         *cnt, out["hops"] = counters.to(torch.int32).unbind(1)
-        out.update(zip(cnt_keys, cnt))
+        out.update(zip(names, cnt))
     return out
 
 
@@ -545,18 +553,51 @@ def make_searcher(vectors, adj, cfg: SearchConfig,
     return search
 
 
-def _greedy_level(vecs_l, adj_l, queries, cur, *, metric: str):
-    """One upper-layer greedy descent for a whole query batch: each query
+@dataclasses.dataclass(frozen=True)
+class DeviceLevels:
+    """A graph's upper levels (1 and up, bottom first) on one device, for the
+    descent: each level's sorted global ids and its level-local adjacency as
+    int32 tensors, and the entry node's global id.  They hold no rows: the
+    descent reads those through the storage's :func:`row_reader`."""
+
+    entry: int
+    levels: tuple           # ((ids (Nl,), adj (Nl, Ml)), ...)
+
+    @classmethod
+    def of(cls, graph, device) -> "DeviceLevels":
+        """The upper levels of ``graph`` (a ``GraphIndex``) on ``device``."""
+        to = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+        return cls(graph.entry, tuple((to(ids), to(adj))
+                                      for ids, adj in graph.levels[1:]))
+
+
+def row_reader(vectors, storage: str, dfloat_cfg=None, backend: str = "auto"):
+    """The storage's one row rule: ``ids`` (an integer tensor of any shape)
+    -> their f32 rows, ``ids.shape + (D,)``.  f32 rows are gathered from the
+    DB; packed and tiered rows are decoded from their words by the fused
+    gather decode (:func:`decode_rows`, one launch), which is exact: a row
+    reads the same f32 either way it is read."""
+    if storage == "f32":
+        return lambda ids: vectors[ids.long()]
+    return lambda ids: decode_rows(vectors, ids.reshape(-1).long(), dfloat_cfg,
+                                   backend=backend).unflatten(0, ids.shape)
+
+
+def _greedy_level(ids_l, adj_l, rows, queries, cur, *, metric: str):
+    """One upper-level greedy descent for a whole query batch: each query
     moves to its nearest neighbor while that improves its distance (a query
-    that stops improving is a fixed point of the step).  Returns the
-    positions reached and the steps taken, each one a sync."""
+    that stops improving is a fixed point of the step).  ``cur`` and the
+    result are positions in the level; each step reads the rows it compares,
+    by global id.  Returns the positions reached and the steps taken, each
+    one a sync."""
     c = cur.long()
-    d = fee_mod.exact_distance(queries, vecs_l[c][:, None, :], metric=metric)[:, 0]
+    d = fee_mod.exact_distance(queries, rows(ids_l[c])[:, None, :],
+                               metric=metric)[:, 0]
     steps = 0
     while True:
         steps += 1
         nb = adj_l[c].long()
-        nd = fee_mod.exact_distance(queries, vecs_l[nb], metric=metric)
+        nd = fee_mod.exact_distance(queries, rows(ids_l[nb]), metric=metric)
         j = torch.argmin(nd, dim=1, keepdim=True)      # first minimum
         ndj = torch.gather(nd, 1, j)[:, 0]
         better = ndj < d
@@ -566,52 +607,42 @@ def _greedy_level(vecs_l, adj_l, queries, cur, *, metric: str):
         d = torch.minimum(ndj, d)
 
 
-def descend_entry(vectors, graph, queries, metric: str) -> np.ndarray:
-    """Greedy top-down routing through HNSW upper layers -> base entry ids.
+def descend_entry(levels: DeviceLevels, rows, queries, metric: str) -> torch.Tensor:
+    """Greedy top-down routing through the graph's upper levels -> the base
+    level's entry ids, a (Q,) int32 tensor on the queries' device.
 
-    ``vectors`` is either the dense (N, D) f32 tensor or a callable
-    ``ids -> (len(ids), D) f32`` tensor provider; ``queries`` is a tensor on
-    the device the descent runs on.
-    """
-    fetch = vectors if callable(vectors) else (lambda ids: vectors[ids])
-    entries = np.full(len(queries), graph.entry, np.int64)
-    dev = queries.device
+    ``levels`` are the upper levels on that device and ``rows`` the
+    storage's row reader (:func:`row_reader`).  The ids stay on the device
+    from one level to the next: a level's entries are found among its
+    sorted ids by ``torch.searchsorted``."""
+    entries = torch.full((queries.shape[0],), levels.entry, dtype=torch.int32,
+                         device=queries.device)
     steps = 0
     with tracer.span("search.descend") as sp:
-        for ids, adj in reversed(graph.levels[1:]):
-            # level ids are sorted by construction (graph.build_graph)
-            pos = np.clip(np.searchsorted(ids, entries), 0, len(ids) - 1)
-            cur = np.where(ids[pos] == entries, pos, 0)
-            cur, n = _greedy_level(fetch(ids), torch.as_tensor(adj, device=dev),
-                                   queries, torch.as_tensor(cur, device=dev),
-                                   metric=metric)
+        for ids, adj in reversed(levels.levels):
+            pos = torch.searchsorted(ids, entries).clamp_(max=len(ids) - 1)
+            cur = torch.where(ids[pos] == entries, pos, 0)
+            cur, n = _greedy_level(ids, adj, rows, queries, cur, metric=metric)
             steps += n
-            entries = ids[cur.cpu().numpy()]
-        sp.set(levels=len(graph.levels) - 1, steps=steps)
-    return entries.astype(np.int32)
+            entries = ids[cur]
+        sp.set(levels=len(levels.levels), steps=steps)
+    return entries
 
 
 def search_graph(vectors, graph, queries, cfg: SearchConfig,
                  fee: FeeParams | dict | None = None, trace: bool = False,
-                 dfloat_cfg=None, descent_vectors=None, tombstone=None) -> dict:
+                 dfloat_cfg=None, tombstone=None) -> dict:
     """Descend to base entries, run base-layer search; numpy result dict.
 
     ``vectors`` is a tensor on the search device (the tier pair for
-    ``storage="tiered"``, as in :func:`make_searcher`); with packed or tiered
-    storage ``descent_vectors`` (dense tensor or ``ids -> rows`` callable)
-    supplies the f32 rows of the upper levels (default: decoded from
-    ``vectors``).
+    ``storage="tiered"``, as in :func:`make_searcher`); the descent reads
+    the upper levels' rows from it (:func:`row_reader`).
     """
     dev = _lead(vectors).device
-    if descent_vectors is None:
-        if cfg.storage == "f32":
-            descent_vectors = vectors
-        else:
-            descent_vectors = lambda ids: decode_rows(
-                vectors, torch.as_tensor(ids, device=dev).long(), dfloat_cfg,
-                backend=cfg.fee_backend)
     q = torch.as_tensor(queries, dtype=torch.float32, device=dev)
-    entries = descend_entry(descent_vectors, graph, q, cfg.metric)
+    entries = descend_entry(DeviceLevels.of(graph, dev),
+                            row_reader(vectors, cfg.storage, dfloat_cfg,
+                                       cfg.fee_backend), q, cfg.metric)
     out = make_searcher(vectors, torch.as_tensor(graph.base_adjacency,
                                                  device=dev),
                         cfg, fee=fee, trace=trace, dfloat_cfg=dfloat_cfg,

@@ -60,29 +60,6 @@ def make(index, backend: str, params: SearchParams, *, device, **opts):
     raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
 
 
-def _descent_rows(params: SearchParams, vectors, dfloat_cfg, device):
-    """f32 row provider for the upper-layer greedy descent.
-
-    Descent touches only the small upper-level subsets.  Dense storage
-    gathers them from the device DB; packed and tiered storage decode their
-    words (both tiers, concatenated: bit-identical to the emulated rows)
-    with the ``dfloat_unpack`` kernel once per level and keep them (the level
-    ids are fixed, so repeated ``run()`` calls reuse them)."""
-    if params.storage == "f32":
-        return lambda ids: vectors[torch.as_tensor(ids, device=device).long()]
-    cache = {}
-
-    def rows(ids):
-        key = id(ids)
-        if key not in cache:
-            cache[key] = search_mod.decode_rows(
-                vectors, torch.as_tensor(ids, device=device).long(), dfloat_cfg,
-                backend=params.fee_backend)
-        return cache[key]
-
-    return rows
-
-
 def _dfloat_cfg(index, params: SearchParams):
     """The layout of the storage's rows: the tier pair's, the packed rows',
     or None for f32 rows."""
@@ -112,7 +89,9 @@ def local_searcher(index, params: SearchParams, *, device, fee=None):
         fee=_fee_params(index, params, fee, device),
         trace=params.trace, dfloat_cfg=dfloat_cfg,
         tombstone=index.device_tombstone(device))
-    rows = _descent_rows(params, vectors, dfloat_cfg, device)
+    levels = index.device_levels(device)
+    rows = search_mod.row_reader(vectors, params.storage, dfloat_cfg,
+                                 params.fee_backend)
 
     def run(queries) -> SearchResult:
         with tracer.span("search.call", q=len(queries), storage=params.storage,
@@ -120,7 +99,7 @@ def local_searcher(index, params: SearchParams, *, device, fee=None):
             with tracer.span("search.transform"):
                 qr = torch.from_numpy(
                     index.transform_queries(np.asarray(queries))).to(device)
-            entries = search_mod.descend_entry(rows, index.graph, qr, index.metric)
+            entries = search_mod.descend_entry(levels, rows, qr, index.metric)
             raw = searcher(qr, entries)
             with tracer.span("search.readback"):
                 res = SearchResult.from_raw(raw)
@@ -178,11 +157,13 @@ def sharded_searcher(index, params: SearchParams, *, device, mesh=None,
         n_bits_log2=n_bits_log2,
         dfloat_cfg=dfloat_cfg, tombstone=index.tombstone is not None,
         overlap=overlap)
-    rows = _descent_rows(params, vectors, dfloat_cfg, device)
+    levels = index.device_levels(device)
+    rows = search_mod.row_reader(vectors, params.storage, dfloat_cfg,
+                                 params.fee_backend)
 
     def run(queries) -> SearchResult:
         qr = torch.from_numpy(index.transform_queries(np.asarray(queries))).to(device)
-        entries = search_mod.descend_entry(rows, index.graph, qr, index.metric)
+        entries = search_mod.descend_entry(levels, rows, qr, index.metric)
         ids, dists, hops = searcher(sdb, qr, entries)
         return SearchResult(ids=ids.cpu().numpy(), dists=dists.cpu().numpy(),
                             hops=hops.cpu().numpy(), generation=index.generation)

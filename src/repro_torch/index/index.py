@@ -7,11 +7,11 @@ bit-packed DB.  Online (Fig. 6 lower): hierarchy descent -> FEE-sPCA beam
 search (``searcher("local")``).
 
 The index holds host numpy arrays; each device gets its own cached copies
-(``device_db``, ``device_adjacency``) that every searcher on that device
-shares.  ``db_packed`` (the burst-aligned Dfloat bitstream) is the canonical
-payload; the quantized f32 view ``db_q`` is derived from ``db_rot`` and the
-layout (on the device, for the f32 search), bit-identical to decoding the
-bitstream.
+(``device_db``, ``device_adjacency``, ``device_levels``) that every searcher
+on that device shares.  ``db_packed`` (the burst-aligned Dfloat bitstream)
+is the canonical payload; the quantized f32 view ``db_q`` is derived from
+``db_rot`` and the layout (on the device, for the f32 search), bit-identical
+to decoding the bitstream.
 
 Persistence is the JAX package's format v3 (``<path>/spec.json`` +
 ``<path>/arrays.npz``, per-array checksums): either package loads the
@@ -184,6 +184,15 @@ class Index:
                 np.ascontiguousarray(self.graph.base_adjacency, np.int32)).to(device)
         return self._device[key]
 
+    def device_levels(self, device) -> search_mod.DeviceLevels:
+        """The graph's upper levels on ``device`` (their ids and level-local
+        adjacency, no rows), which the descent of every searcher there
+        reads."""
+        key = ("levels", str(device))
+        if key not in self._device:
+            self._device[key] = search_mod.DeviceLevels.of(self.graph, device)
+        return self._device[key]
+
     def device_tombstone(self, device) -> torch.Tensor | None:
         if self.tombstone is None:
             return None
@@ -195,9 +204,10 @@ class Index:
 
     def seed_device(self, key, arr) -> None:
         """Pre-populate the device-tensor cache under the keys ``device_db``,
-        ``device_adjacency`` and ``device_tombstone`` read
+        ``device_adjacency``, ``device_tombstone`` and ``device_levels`` read
         (``("db", storage, use_dfloat, str(device))``, ``("adj",
-        str(device))``, ``("tombstone", str(device))``).  The serving tier's
+        str(device))``, ``("tombstone", str(device))``, ``("levels",
+        str(device))``).  The serving tier's
         :class:`repro_torch.index.device.DeviceCache` seeds each snapshot
         with the tensors it spliced, so a generation swap never re-ships the
         full payload; ``searcher()`` picks them up unchanged."""

@@ -135,6 +135,8 @@ class MutableIndex:
         self._n_long = max(0, self._m_total - base.graph.m)
         self._upper = base.graph.levels[1:]
         self._entry = base.graph.entry
+        # the candidate search's descent: the fixed upper levels, on the device
+        self._levels = base.device_levels(self.device)
 
         self._n = n
         # tier-native (spec.tier_split set): the (coarse, residual) capacity
@@ -296,8 +298,9 @@ class MutableIndex:
         self._sync_adj()
         q = torch.from_numpy(np.ascontiguousarray(rotated, np.float32)
                              ).to(self.device)
-        entries = search_mod.descend_entry(self._rot_d, self._graph_view(), q,
-                                           self.spec.metric)
+        entries = search_mod.descend_entry(
+            self._levels, search_mod.row_reader(self._rot_d, "f32"), q,
+            self.spec.metric)
         out = search_mod.make_searcher(
             self._rot_d, self._adj_d, cfg,
             tombstone=tail_tombstone(self._n, self.capacity, self.device))(

@@ -337,6 +337,81 @@ def test_result_shapes_and_dtypes_match_jax(pair, storage, trace, n_q):
 
 
 # ---------------------------------------------------------------------------
+# the descent over the upper levels on the device
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("storage", beam_cases.STORAGES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_device_descent_equals_the_host_descent(pair, metric, storage):
+    """The descent over the device levels, reading rows through the storage's
+    row rule, against the descent as it ran on the host (levels copied and
+    mapped a call, whole levels read): the entries and the greedy steps bit
+    for bit."""
+    from repro_torch import obs
+
+    db, _, port, *_ = pair[metric]
+    params = dataclasses.replace(BASE, storage=storage)
+    dev = torch.device("cpu")
+    q = torch.from_numpy(port.transform_queries(db.queries))
+    vectors = port.device_db(params.use_dfloat, storage, dev)
+    rows = tsearch.row_reader(vectors, storage, beam_cases.backends._dfloat_cfg(
+        port, params), params.fee_backend)
+    obs.enable_tracing()
+    obs.tracer.clear()
+    try:
+        got = tsearch.descend_entry(port.device_levels(dev), rows, q, port.metric)
+        span, = [s.attrs for s in obs.tracer.spans() if s.name == "search.descend"]
+    finally:
+        obs.disable_tracing()
+        obs.tracer.clear()
+    want, steps = beam_cases.parent_descent(port, q, params, dev)
+    assert got.dtype == torch.int32 and got.device == dev
+    assert np.array_equal(got.numpy(), want)
+    assert span == dict(levels=len(port.graph.levels) - 1, steps=steps)
+    assert steps > span["levels"] > 0 and len(np.unique(want)) > 1
+
+
+def test_device_levels_are_built_once(pair, monkeypatch):
+    """Two calls of a local searcher read the one ``device_levels`` of the
+    index (the same tensors), the second converts no graph array, and
+    ``drop_device`` releases them."""
+    db, _, port, *_ = pair["l2"]
+    idx = dataclasses.replace(port, _searchers={}, _device={})
+    dev = torch.device("cpu")
+    built, seen = [], []
+    of, descend = tsearch.DeviceLevels.of, tsearch.descend_entry
+    monkeypatch.setattr(tsearch.DeviceLevels, "of",
+                        classmethod(lambda cls, *a: built.append(1) or of(*a)))
+    monkeypatch.setattr(tsearch, "descend_entry",
+                        lambda levels, *a: seen.append(levels) or descend(levels, *a))
+    run = idx.searcher("local", BASE)
+    first = run(db.queries)
+    graph_arrays = [a for level in idx.graph.levels[1:] for a in level]
+    converted = []
+    for name in ("from_numpy", "as_tensor"):
+        def record(x, *a, _fn=getattr(torch, name), **k):
+            if isinstance(x, np.ndarray) and any(np.may_share_memory(x, g)
+                                                 for g in graph_arrays):
+                converted.append(x.shape)
+            return _fn(x, *a, **k)
+        monkeypatch.setattr(torch, name, record)
+    second = run(db.queries)
+    assert not converted and built == [1]
+    levels = idx.device_levels(dev)
+    assert len(seen) == 2 and seen[0] is seen[1] is levels
+    assert len(levels.levels) == len(idx.graph.levels) - 1
+    for (ids, adj), (hi, ha) in zip(levels.levels, idx.graph.levels[1:]):
+        assert ids.dtype == adj.dtype == torch.int32
+        assert np.array_equal(ids.numpy(), hi) and np.array_equal(adj.numpy(), ha)
+    assert np.array_equal(first.ids, second.ids)
+    assert np.array_equal(first.dists, second.dists)
+    idx.drop_device()
+    assert ("levels", str(dev)) not in idx._device
+    assert idx.device_levels(dev) is not levels and built == [1, 1]
+
+
+# ---------------------------------------------------------------------------
 # the untraced loop's in-place step and the choice of its loop
 # ---------------------------------------------------------------------------
 
@@ -358,6 +433,39 @@ def test_in_place_step_equals_the_loop_it_replaced(pair, metric, storage, tomb):
     assert int(got["hops"].max()) > 0
     if tomb:
         assert args[3] is not None
+
+
+@pytest.mark.parametrize("storage", beam_cases.STORAGES)
+def test_untraced_hop_returns_counters_only(pair, storage):
+    """The untraced hop returns its counters as one (Q, C) tensor and builds
+    no trace: from the same state, hop after hop, they equal the traced
+    hop's named counters and its popped-a-node test, and both hops leave the
+    same state."""
+    db, _, port, *_ = pair["l2"]
+    params = dataclasses.replace(BASE, storage=storage)
+    args, kw = beam_cases.beam_inputs(port, db.queries, params, torch.device("cpu"))
+    vectors, adj, fee, tomb, q, entries = args
+    cfg, dfl_cfg = kw["cfg"], kw["dfl_cfg"]
+    names = tsearch.counter_names(cfg)
+    assert names == (beam_cases.CNT_KEYS if storage == "tiered"
+                     else beam_cases.CNT_KEYS[:2])
+    n_words = -(-tsearch._lead(vectors).shape[0] // 32)
+    plain = tsearch._init_state(q, entries, vectors, cfg, n_words, dfl_cfg)
+    traced = tuple(t.clone() for t in plain)
+    popped = 0
+    for _ in range(6):
+        plain, cnt = tsearch._hop_body(plain, vectors, adj, q, fee, cfg, dfl_cfg, tomb)
+        traced, t = tsearch._hop_body(traced, vectors, adj, q, fee, cfg, dfl_cfg,
+                                      tomb, trace=True)
+        assert isinstance(cnt, torch.Tensor) and cnt.shape == (len(q), len(names) + 1)
+        assert set(t) == {"node", "nbrs", "segs", "cand_d", "src", *names}
+        want = torch.stack([t[k] for k in names]
+                           + [(t["node"] >= 0).any(1).to(torch.int32)], dim=1)
+        assert torch.equal(cnt, want.to(cnt.dtype))
+        for a, b in zip(plain, traced):
+            assert torch.equal(a, b)
+        popped += int(cnt[:, -1].sum())
+    assert popped > 0 and int(cnt[:, 0].sum()) >= 0
 
 
 CAPTURE_CASES = {          # (device, SearchConfig fields, trace) -> captures

@@ -1,10 +1,13 @@
 """The beam loop's inputs built from an index, for tests that call
 ``repro_torch.core.search._search_batch`` itself (so that its two loops run
-on the same state), and the untraced loop written as it ran before its hop
-became an in-place step.  No JAX here: the CUDA tests use it too."""
+on the same state), the untraced loop written as it ran before its hop
+became an in-place step, and the descent as it ran on the host before the
+upper levels lived on the device.  No JAX here: the CUDA tests use it
+too."""
 import numpy as np
 import torch
 
+from repro_torch.core import fee as fee_mod
 from repro_torch.core import search
 from repro_torch.core.fee import FeeParams
 from repro_torch.index import backends
@@ -53,9 +56,8 @@ def beam_inputs(idx, queries, params, device, tombstone=None):
     dfl_cfg = backends._dfloat_cfg(idx, params)
     q = torch.from_numpy(idx.transform_queries(
         np.asarray(queries, np.float32).reshape(-1, idx.dim))).to(device)
-    rows = backends._descent_rows(params, vectors, dfl_cfg, device)
-    entries = torch.as_tensor(search.descend_entry(rows, idx.graph, q, idx.metric),
-                              device=device)
+    rows = search.row_reader(vectors, params.storage, dfl_cfg, params.fee_backend)
+    entries = search.descend_entry(idx.device_levels(device), rows, q, idx.metric)
     fee = FeeParams.coerce(backends._fee_params(idx, params, None, device),
                            device=device)
     tomb = (idx.device_tombstone(device) if tombstone is None
@@ -67,9 +69,9 @@ def beam_inputs(idx, queries, params, device, tombstone=None):
 def parent_loop(vectors, adj, fee, tombstone, queries, entries, *, cfg,
                 trace, dfl_cfg):
     """The untraced beam loop before its hop was an in-place step: each hop
-    returns a new state, the counters are summed from its trace, and the
-    termination test is computed and read between hops.  Returns
-    ``_search_batch``'s untraced dict."""
+    returns a new state, the counters are summed from its trace (the traced
+    form of the hop), and the termination test is computed and read between
+    hops.  Returns ``_search_batch``'s untraced dict."""
     assert not trace
     keys = CNT_KEYS if cfg.storage == "tiered" else CNT_KEYS[:2]
     n_words = -(-search._lead(vectors).shape[0] // 32)
@@ -81,7 +83,7 @@ def parent_loop(vectors, adj, fee, tombstone, queries, entries, *, cfg,
         if not bool(((~expanded) & (beam_d < search.BIG)).any()):
             break
         state, t = search._hop_body(state, vectors, adj, queries, fee, cfg,
-                                    dfl_cfg, tombstone)
+                                    dfl_cfg, tombstone, trace=True)
         counters += torch.stack([t[k] for k in keys]
                                 + [(t["node"] >= 0).any(1).to(torch.int32)], dim=1)
     beam_ids, beam_d = state[0], state[1]
@@ -91,6 +93,65 @@ def parent_loop(vectors, adj, fee, tombstone, queries, entries, *, cfg,
     *cnt, out["hops"] = counters.to(torch.int32).unbind(1)
     out.update(zip(keys, cnt))
     return out
+
+
+def parent_rows(params, vectors, dfl_cfg, device):
+    """The upper levels' row provider as the searchers built it before the
+    row rule had one home: f32 rows gathered a whole level a call, packed
+    and tiered levels decoded whole once and kept, keyed by ``id(ids)``."""
+    if params.storage == "f32":
+        return lambda ids: vectors[torch.as_tensor(ids, device=device).long()]
+    cache = {}
+
+    def rows(ids):
+        key = id(ids)
+        if key not in cache:
+            cache[key] = search.decode_rows(
+                vectors, torch.as_tensor(ids, device=device).long(), dfl_cfg,
+                backend=params.fee_backend)
+        return cache[key]
+
+    return rows
+
+
+def _parent_greedy_level(vecs_l, adj_l, queries, cur, *, metric):
+    c = cur.long()
+    d = fee_mod.exact_distance(queries, vecs_l[c][:, None, :],
+                                      metric=metric)[:, 0]
+    steps = 0
+    while True:
+        steps += 1
+        nb = adj_l[c].long()
+        nd = fee_mod.exact_distance(queries, vecs_l[nb], metric=metric)
+        j = torch.argmin(nd, dim=1, keepdim=True)
+        ndj = torch.gather(nd, 1, j)[:, 0]
+        better = ndj < d
+        if not bool(better.any()):
+            return c, steps
+        c = torch.where(better, torch.gather(nb, 1, j)[:, 0], c)
+        d = torch.minimum(ndj, d)
+
+
+def parent_descent(idx, queries, params, device):
+    """The descent as it ran on the host: each level's adjacency copied to
+    the device and its ids mapped with ``np.searchsorted`` every call, the
+    level's rows read whole (:func:`parent_rows`), and the positions read
+    back after each level.  ``queries`` are transformed ones on ``device``;
+    returns (entries as (Q,) int32 numpy, greedy steps)."""
+    vectors = idx.device_db(params.use_dfloat, params.storage, device)
+    fetch = parent_rows(params, vectors, backends._dfloat_cfg(idx, params), device)
+    graph = idx.graph
+    entries = np.full(len(queries), graph.entry, np.int64)
+    steps = 0
+    for ids, adj in reversed(graph.levels[1:]):
+        pos = np.clip(np.searchsorted(ids, entries), 0, len(ids) - 1)
+        cur = np.where(ids[pos] == entries, pos, 0)
+        cur, n = _parent_greedy_level(fetch(ids), torch.as_tensor(adj, device=device),
+                                      queries, torch.as_tensor(cur, device=device),
+                                      metric=idx.metric)
+        steps += n
+        entries = ids[cur.cpu().numpy()]
+    return entries.astype(np.int32), steps
 
 
 def assert_same(got: dict, want: dict, what: str = "") -> None:
