@@ -28,8 +28,9 @@ Phases, each of which fails the run when its check fails:
    ``fee_distance_packed`` and ``dfloat_unpack``; tiered:
    ``fee_distance_tiered``; skip-DMA: ``fee_distance_skipdma``, or
    ``fee_distance_packed_skipdma`` and ``dfloat_unpack``) and not the ones
-   they replace.  Packed ids must equal f32 ids, tiered ids and distances
-   packed ones, each skip-DMA search's ids and distances its storage's
+   they replace, and ``descend`` once a search call.  Packed ids must
+   equal f32 ids, tiered ids and distances packed ones, each skip-DMA
+   search's ids and distances its storage's
    default ones; recall@10 must reach 0.80;
 4. the plain path (``fee_backend="jnp"``) on 256 queries: mean id overlap@10
    with the kernel path >= 0.99 for each storage;
@@ -47,6 +48,14 @@ Phases, each of which fails the run when its check fails:
    visited bitmap, bit for bit, each timed (``frontier``; a phase-5b-only
    run: ``python3 -c "import sys, torch; sys.path[:0] = ['src', '.'];
    import chip_smoke as cs; cs.frontier_phase(torch.device('cuda'))"``);
+   the descent's ``descend`` kernel against its plain version (the host
+   loop of batched torch steps) at sift packed and f32 (Q = 10,000,
+   D = 128) and gist packed (Q = 1,000, D = 960) over 1M clustered rows
+   and the upper levels ``build_graph`` makes, entries agreeing on >= 99.9% of the
+   queries, each timed beside the bound of the bytes the walks read
+   (``descend``; a phase-5c-only run: ``python3 -c "import sys, torch;
+   sys.path[:0] = ['src', '.']; import chip_smoke as cs;
+   cs.descend_phase(torch.device('cuda'))"``);
 6. ``torch.profiler`` over one f32 and one packed search batch: device-busy
    time against the batch's wall time, and the costliest kernels;
 7. the ndpsim backend (``searcher("ndpsim")``) over the first 128 queries
@@ -221,7 +230,7 @@ REPEATS = 3                        # timed search calls, each over every query
 SLEEP_CYCLES = 100_000_000         # ~50 ms at the H100's clocks: time to queue a timed run
 PORT_KERNELS = ("fee_f32_kernel", "fee_packed_kernel", "dfloat_unpack_kernel",
                 "fee_skipdma_f32_kernel", "fee_skipdma_packed_kernel", "fee_tiered_kernel",
-                "frontier_kernel")
+                "frontier_kernel", "descend_kernel")
 # kernels whose staged words must stay in registers (no local-memory frame)
 NO_FRAME_KERNELS = ("fee_packed_kernel", "fee_skipdma_packed_kernel", "fee_tiered_kernel",
                     "fee_skipdma_f32_kernel")
@@ -764,6 +773,101 @@ def frontier_phase(dev, n_q=10_000, n=1_000_000, e=4, m=20, width=40, sets=8):
     return times
 
 
+def descent_levels(x, metric, seed):
+    """The upper levels ``build_graph`` makes at m = 16 over the rows ``x``
+    (a CUDA tensor), on its device, without the base level's kNN (the
+    descent never reads the base level)."""
+    from repro_torch.core import graph as graph_mod
+    from repro_torch.core import search
+
+    ups = graph_mod.upper_levels(x, 16, metric, np.random.default_rng(seed), n_long=4)
+    base = (np.arange(x.shape[0], dtype=np.int32), np.zeros((x.shape[0], 1), np.int32))
+    graph = graph_mod.GraphIndex(levels=[base] + ups, entry=int(ups[-1][0][0]), m=16)
+    return search.DeviceLevels.of(graph, x.device)
+
+
+def walk_steps(levels, rows, q, metric):
+    """The steps the queries' greedy walks take (a query's steps on a level
+    are its moves plus the one that finds no nearer neighbour), from the
+    plain version's levels."""
+    from repro_torch.kernels import ref
+
+    entries = torch.full((q.shape[0],), levels.entry, dtype=torch.int32, device=q.device)
+    total = 0
+    for ids, adj in reversed(levels.levels):
+        cur, _, moved = ref.greedy_level(ids, adj, rows, q, ref.level_start(ids, entries),
+                                         metric=metric)
+        total += q.shape[0] + moved
+        entries = ids[cur]
+    return total
+
+
+# (name, storage, queries, dim, field width of the packed layout)
+DESCEND_CASES = (("sift packed", "packed", 10_000, 128, 16),
+                 ("gist packed", "packed", 1_000, 960, 12),
+                 ("sift f32", "f32", 10_000, 128, None))
+
+
+def descend_phase(dev, n=1_000_000):
+    """The descent's ``descend`` kernel against its plain version (the host
+    loop of batched torch steps it replaced, one sync a step) at the batch
+    cells' shapes: N clustered rows made on the card and packed at the
+    cell's field width (sift: Q = 10,000, D = 128, 16-bit; gist: Q = 1,000,
+    D = 960, 12-bit) or kept as f32 rows (sift f32: the f32 template case
+    that the main path's f32 search runs), the upper levels ``build_graph``
+    makes at m = 16.
+    Entries must agree on >= 99.9% of the queries (the kernel's f32 sums are
+    not torch's).  Each is timed with CUDA events over 20 calls after 3
+    warm-ups (``time_ms``), in turns, beside the bound of the bytes the walks
+    read: every step's m positions, m ids and m rows and each query's first
+    row, at 4 B a word (and at the 32 B sector a random id costs) over
+    3.35 TB/s."""
+    from repro_torch.core import dfloat as dfl
+    from repro_torch.core import search
+    from repro_torch.kernels import descend as descend_kernel
+    from repro_torch.kernels import ref
+
+    out = {}
+    for name, storage, n_q, d, width in DESCEND_CASES:
+        g = torch.Generator(device=dev).manual_seed(d)
+        centers = 3.0 * torch.randn((64, d), generator=g, device=dev)
+        x = centers[torch.randint(0, 64, (n,), generator=g, device=dev)] + torch.randn(
+            (n, d), generator=g, device=dev)
+        q = x[torch.randint(0, n, (n_q,), generator=g, device=dev)] + 0.5 * torch.randn(
+            (n_q, d), generator=g, device=dev)
+        levels = descent_levels(x, "l2", d)
+        cfg = None
+        if storage == "packed":
+            cfg = dfl.make_config(d, [(width, dfl.EXP_BITS[width], d)], x)
+            x = torch.from_numpy(dfl.pack_db(x, cfg).view(np.int32)).to(dev)
+        args = (levels, x, storage, cfg, q, "l2")
+        got, want = descend_kernel.descend(*args), ref.descend_ref(*args)
+        agree = float((got[0] == want[0]).float().mean())
+        check(agree >= 0.999, f"descend ({name}): entries agree on {agree:.5f} of the "
+              "queries, under 0.999")
+        check(got[2] == len(levels.spans), f"descend ({name}): the kernel walked {got[2]} "
+              f"of {len(levels.spans)} levels")
+        steps = walk_steps(levels, search.row_reader(x, storage, cfg), q, "l2")
+        times = {"kernel_ms": [], "plain_ms": []}
+        for key in ("kernel_ms", "plain_ms", "plain_ms", "kernel_ms"):     # in turns
+            fn = descend_kernel.descend if key == "kernel_ms" else ref.descend_ref
+            times[key].append(time_ms(lambda: fn(*args)))
+        m = levels.spans[0][3]
+        row_b = x.shape[1] * 4
+        exact = steps * m * (4 + 4 + row_b) + n_q * row_b
+        sectors = steps * (-(-m * 4 // 32) * 32 + m * 32 + m * row_b) + n_q * row_b
+        out[name] = dict(
+            storage=storage, q=n_q, n=n, d=d, width=width, row_bytes=row_b,
+            level_nodes=[s[1] for s in levels.spans], m=m, agree=agree,
+            moves=got[1].tolist(), plain_moves=want[1].tolist(), walk_steps=steps,
+            steps_a_query=steps / n_q, **times, bound_ms=bound(exact, 0)[0],
+            sector_bound_ms=bound(sectors, 0)[0], bytes=exact, sector_bytes=sectors)
+        del x, levels, q, got, want
+        torch.cuda.empty_cache()
+    log(json.dumps({"descend": out}))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
@@ -806,6 +910,7 @@ def main_path(args, dev, kernels):
     the search of its path, and the searches' reports."""
     from repro_torch.data.synthetic import DATASETS, make_dataset
     from repro_torch.index import Index, IndexSpec, SearchParams
+    from repro_torch.kernels import descend as descend_kernel
 
     spec = dataclasses.replace(DATASETS["sift1m"], n=args.n, n_queries=args.queries)
     if (spec.n, spec.n_queries) != (DATASETS["sift1m"].n, DATASETS["sift1m"].n_queries):
@@ -844,14 +949,18 @@ def main_path(args, dev, kernels):
     log(f"tiers at the automatic split {index.tier_split} of {index.dim // index.seg}: "
         f"{xc.shape[1]} + {xr.shape[1]} words, packed in {time.perf_counter() - t0:.1f} s")
 
-    # each search carries its own launch counts
+    # each search carries its own launch counts, the descent's among them:
+    # one ``descend`` launch a search call (a warm-up and REPEATS timed)
     launches, runs = {}, {}
     for name, fields, must, must_not in SEARCHES:
-        for fn in kernels.values():
+        for fn in (*kernels.values(), descend_kernel.descend):
             fn.launches = 0
         runs[name] = run_search(index, db, SearchParams(ef=64, k=10, **fields), dev)
         counts = {k: fn.launches for k, fn in kernels.items()}
-        log(json.dumps({"launches": {"search": name, **counts}}))
+        counts["descend"] = descend_kernel.descend.launches
+        log(json.dumps({"launches": {"search": name, "calls": 1 + REPEATS, **counts}}))
+        check(counts["descend"] == 1 + REPEATS, f"the {name} search launched descend "
+              f"{counts['descend']} times in {1 + REPEATS} calls")
         for k in must:
             check(counts[k] > 0, f"kernel {k} was not launched by the {name} search")
             launches.setdefault(k, counts[k])
@@ -2494,6 +2603,7 @@ def main(argv=None) -> int:
     index, db, res64, launches, rep = main_path(args, dev, kernels)
     rows = main_path_kernels(index, db, res64, dev, launches)
     frontier_phase(dev)
+    descend_phase(dev)
     for storage in ("f32", "packed"):
         profile_search(index, db, dev, rep[storage]["p50_batch_ms"], storage)
     log(json.dumps({"reduced": {"ndpsim_queries": NDPSIM_QUERIES,

@@ -115,6 +115,24 @@ def _add_long_edges(adj: np.ndarray, rng, n_long: int) -> np.ndarray:
     return np.concatenate([adj, longs], axis=1)
 
 
+def upper_levels(x: torch.Tensor, m: int, metric: str, rng, n_long: int,
+                 upper_branch: int = 24) -> list:
+    """HNSW-style upper levels over the rows ``x``: geometric subsampling (a
+    sixteenth of the level below, at least ``upper_branch`` ids) while a
+    level holds more than ``4 * upper_branch`` ids, each with its exact kNN
+    lists and ``rng``'s long edges.  Returns [(sorted ids, level-local
+    adjacency), ...] as int32, level 1 first."""
+    out = []
+    ids = np.arange(x.shape[0])
+    while len(ids) > 4 * upper_branch:
+        ids = np.sort(rng.choice(ids, max(len(ids) // 16, upper_branch), replace=False))
+        ml = min(m, len(ids) - 1)
+        adj = _knn_adjacency(x[torch.as_tensor(ids, device=x.device)], ml, metric)
+        adj = _add_long_edges(adj, rng, min(n_long, len(ids) - 1))
+        out.append((ids.astype(np.int32), adj.astype(np.int32)))
+    return out
+
+
 def build_graph(vectors: np.ndarray, m: int = 16, metric: str = "l2",
                 prune: bool = True, upper_branch: int = 24,
                 cache_key: str | None = None, seed: int = 0,
@@ -131,17 +149,9 @@ def build_graph(vectors: np.ndarray, m: int = 16, metric: str = "l2",
             base = _occlusion_prune(x, base, metric, m)
         base = _add_long_edges(base, rng, n_long)
         out = {"adj0": base, "ids0": np.arange(n, dtype=np.int32)}
-        # HNSW-style upper layers: geometric subsampling, kNN within layer
-        ids = np.arange(n)
-        lvl = 1
-        while len(ids) > 4 * upper_branch:
-            ids = np.sort(rng.choice(ids, max(len(ids) // 16, upper_branch), replace=False))
-            ml = min(m, len(ids) - 1)
-            adj = _knn_adjacency(x[torch.as_tensor(ids, device=x.device)], ml, metric)
-            adj = _add_long_edges(adj, rng, min(n_long, len(ids) - 1))
-            out[f"adj{lvl}"] = adj.astype(np.int32)
-            out[f"ids{lvl}"] = ids.astype(np.int32)
-            lvl += 1
+        for lvl, (ids, adj) in enumerate(upper_levels(x, m, metric, rng, n_long,
+                                                      upper_branch), 1):
+            out[f"adj{lvl}"], out[f"ids{lvl}"] = adj, ids
         return out
 
     if cache_key is not None:

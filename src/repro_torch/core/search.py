@@ -53,9 +53,12 @@ hop.
 
 The descent to each query's entry (:func:`descend_entry`) runs on the
 device over the graph's upper levels (:class:`DeviceLevels`, held once per
-index by ``Index.device_levels``) and reads rows through :func:`row_reader`,
-the storage's one row rule, which the beam's first row and its exact
-(no-FEE) scoring read through too.
+index by ``Index.device_levels`` in one flat layout): on a CUDA device as
+one ``descend`` kernel (``kernels/csrc/descend.cu``) that walks every level
+and reads and decodes the storage's rows itself, on the CPU as its plain
+version (``ref.descend_ref``), which reads rows through :func:`row_reader`,
+the storage's one row rule; the beam's first row and its exact (no-FEE)
+scoring read through that rule too.
 
 With the process tracer on (``repro_torch.obs``), a chunk's loop records a
 ``search.beam`` span (attributes ``hops``: the loop's iterations,
@@ -63,7 +66,7 @@ With the process tracer on (``repro_torch.obs``), a chunk's loop records a
 whose frontier step ran the ``frontier`` kernel) and marks each termination
 readback ``search.sync``, each hop ``search.hop`` and a capture
 ``search.capture`` (profiler ranges, no spans); the descent records
-``search.descend``.
+``search.descend`` (``levels``, ``steps``, ``kernel_levels``).
 """
 from __future__ import annotations
 
@@ -553,22 +556,45 @@ def make_searcher(vectors, adj, cfg: SearchConfig,
     return search
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class DeviceLevels:
     """A graph's upper levels (1 and up, bottom first) on one device, for the
-    descent: each level's sorted global ids and its level-local adjacency as
-    int32 tensors, and the entry node's global id.  They hold no rows: the
-    descent reads those through the storage's :func:`row_reader`."""
+    descent, in one flat layout: ``ids``, every level's sorted global ids
+    end to end; ``adj``, every level's (Nl, Ml) level-local adjacency
+    row-major, end to end (int32 vectors); ``table``, an (L, 4) int64 tensor
+    of each level's (ids offset, Nl, adjacency offset, Ml), and ``spans``,
+    the same rows as host ints; and the entry node's global id.  They hold
+    no rows: the descent reads those from the storage."""
 
     entry: int
-    levels: tuple           # ((ids (Nl,), adj (Nl, Ml)), ...)
+    ids: torch.Tensor
+    adj: torch.Tensor
+    table: torch.Tensor
+    spans: tuple            # ((ids offset, Nl, adjacency offset, Ml), ...)
 
     @classmethod
     def of(cls, graph, device) -> "DeviceLevels":
         """The upper levels of ``graph`` (a ``GraphIndex``) on ``device``."""
-        to = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-        return cls(graph.entry, tuple((to(ids), to(adj))
-                                      for ids, adj in graph.levels[1:]))
+        ups = graph.levels[1:]
+        spans, i0, a0 = [], 0, 0
+        for ids, adj in ups:
+            n, m = np.shape(adj)
+            spans.append((i0, n, a0, m))
+            i0, a0 = i0 + n, a0 + n * m
+        flat = lambda arrays: torch.from_numpy(np.concatenate(
+            [np.asarray(a, np.int32).ravel() for a in arrays] or [np.zeros(0, np.int32)])
+        ).to(device)
+        return cls(graph.entry, flat([ids for ids, _ in ups]),
+                   flat([adj for _, adj in ups]),
+                   torch.tensor(spans, dtype=torch.int64).reshape(-1, 4).to(device),
+                   tuple(spans))
+
+    @property
+    def levels(self) -> tuple:
+        """((ids (Nl,), adj (Nl, Ml)), ...), bottom first: views of the flat
+        tensors."""
+        return tuple((self.ids[i0:i0 + n], self.adj[a0:a0 + n * m].view(n, m))
+                     for i0, n, a0, m in self.spans)
 
 
 def row_reader(vectors, storage: str, dfloat_cfg=None, backend: str = "auto"):
@@ -583,49 +609,27 @@ def row_reader(vectors, storage: str, dfloat_cfg=None, backend: str = "auto"):
                                    backend=backend).unflatten(0, ids.shape)
 
 
-def _greedy_level(ids_l, adj_l, rows, queries, cur, *, metric: str):
-    """One upper-level greedy descent for a whole query batch: each query
-    moves to its nearest neighbor while that improves its distance (a query
-    that stops improving is a fixed point of the step).  ``cur`` and the
-    result are positions in the level; each step reads the rows it compares,
-    by global id.  Returns the positions reached and the steps taken, each
-    one a sync."""
-    c = cur.long()
-    d = fee_mod.exact_distance(queries, rows(ids_l[c])[:, None, :],
-                               metric=metric)[:, 0]
-    steps = 0
-    while True:
-        steps += 1
-        nb = adj_l[c].long()
-        nd = fee_mod.exact_distance(queries, rows(ids_l[nb]), metric=metric)
-        j = torch.argmin(nd, dim=1, keepdim=True)      # first minimum
-        ndj = torch.gather(nd, 1, j)[:, 0]
-        better = ndj < d
-        if not bool(better.any()):
-            return c, steps
-        c = torch.where(better, torch.gather(nb, 1, j)[:, 0], c)
-        d = torch.minimum(ndj, d)
-
-
-def descend_entry(levels: DeviceLevels, rows, queries, metric: str) -> torch.Tensor:
+def descend_entry(levels: DeviceLevels, vectors, storage: str, dfloat_cfg,
+                  queries, metric: str) -> torch.Tensor:
     """Greedy top-down routing through the graph's upper levels -> the base
     level's entry ids, a (Q,) int32 tensor on the queries' device.
 
-    ``levels`` are the upper levels on that device and ``rows`` the
-    storage's row reader (:func:`row_reader`).  The ids stay on the device
-    from one level to the next: a level's entries are found among its
-    sorted ids by ``torch.searchsorted``."""
-    entries = torch.full((queries.shape[0],), levels.entry, dtype=torch.int32,
-                         device=queries.device)
-    steps = 0
+    ``levels`` are the upper levels on that device; ``vectors`` the rows in
+    ``storage`` with ``dfloat_cfg`` their layout, as :func:`make_searcher`
+    takes them.  On a CUDA device one ``descend`` kernel walks every level
+    (``kernels/descend.py``), and the host waits for nothing; on the CPU the
+    plain version (``ref.descend_ref``) steps every query together.  The
+    ``search.descend`` span carries ``levels``, ``steps`` (the plain loop's
+    step count: a level takes one more step than the most moves any query
+    made there; read back from the kernel's counter only while the tracer
+    is on) and ``kernel_levels`` (the levels the kernel walked, as its
+    wrapper reports them)."""
+    n = len(levels.spans)
     with tracer.span("search.descend") as sp:
-        for ids, adj in reversed(levels.levels):
-            pos = torch.searchsorted(ids, entries).clamp_(max=len(ids) - 1)
-            cur = torch.where(ids[pos] == entries, pos, 0)
-            cur, n = _greedy_level(ids, adj, rows, queries, cur, metric=metric)
-            steps += n
-            entries = ids[cur]
-        sp.set(levels=len(levels.levels), steps=steps)
+        entries, moves, walked = kops.descend(levels, vectors, storage, dfloat_cfg,
+                                              queries.contiguous(), metric)
+        if tracer.enabled:
+            sp.set(levels=n, steps=n + int(moves.sum()), kernel_levels=walked)
     return entries
 
 
@@ -636,13 +640,12 @@ def search_graph(vectors, graph, queries, cfg: SearchConfig,
 
     ``vectors`` is a tensor on the search device (the tier pair for
     ``storage="tiered"``, as in :func:`make_searcher`); the descent reads
-    the upper levels' rows from it (:func:`row_reader`).
+    the upper levels' rows from it.
     """
     dev = _lead(vectors).device
     q = torch.as_tensor(queries, dtype=torch.float32, device=dev)
-    entries = descend_entry(DeviceLevels.of(graph, dev),
-                            row_reader(vectors, cfg.storage, dfloat_cfg,
-                                       cfg.fee_backend), q, cfg.metric)
+    entries = descend_entry(DeviceLevels.of(graph, dev), vectors, cfg.storage,
+                            dfloat_cfg, q, cfg.metric)
     out = make_searcher(vectors, torch.as_tensor(graph.base_adjacency,
                                                  device=dev),
                         cfg, fee=fee, trace=trace, dfloat_cfg=dfloat_cfg,

@@ -90,8 +90,6 @@ def local_searcher(index, params: SearchParams, *, device, fee=None):
         trace=params.trace, dfloat_cfg=dfloat_cfg,
         tombstone=index.device_tombstone(device))
     levels = index.device_levels(device)
-    rows = search_mod.row_reader(vectors, params.storage, dfloat_cfg,
-                                 params.fee_backend)
 
     def run(queries) -> SearchResult:
         with tracer.span("search.call", q=len(queries), storage=params.storage,
@@ -99,7 +97,8 @@ def local_searcher(index, params: SearchParams, *, device, fee=None):
             with tracer.span("search.transform"):
                 qr = torch.from_numpy(
                     index.transform_queries(np.asarray(queries))).to(device)
-            entries = search_mod.descend_entry(levels, rows, qr, index.metric)
+            entries = search_mod.descend_entry(levels, vectors, params.storage,
+                                               dfloat_cfg, qr, index.metric)
             raw = searcher(qr, entries)
             with tracer.span("search.readback"):
                 res = SearchResult.from_raw(raw)
@@ -158,12 +157,11 @@ def sharded_searcher(index, params: SearchParams, *, device, mesh=None,
         dfloat_cfg=dfloat_cfg, tombstone=index.tombstone is not None,
         overlap=overlap)
     levels = index.device_levels(device)
-    rows = search_mod.row_reader(vectors, params.storage, dfloat_cfg,
-                                 params.fee_backend)
 
     def run(queries) -> SearchResult:
         qr = torch.from_numpy(index.transform_queries(np.asarray(queries))).to(device)
-        entries = search_mod.descend_entry(levels, rows, qr, index.metric)
+        entries = search_mod.descend_entry(levels, vectors, params.storage,
+                                           dfloat_cfg, qr, index.metric)
         ids, dists, hops = searcher(sdb, qr, entries)
         return SearchResult(ids=ids.cpu().numpy(), dists=dists.cpu().numpy(),
                             hops=hops.cpu().numpy(), generation=index.generation)

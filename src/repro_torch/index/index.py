@@ -185,8 +185,9 @@ class Index:
         return self._device[key]
 
     def device_levels(self, device) -> search_mod.DeviceLevels:
-        """The graph's upper levels on ``device`` (their ids and level-local
-        adjacency, no rows), which the descent of every searcher there
+        """The graph's upper levels on ``device`` in the descent's flat
+        layout (their ids and level-local adjacency end to end and a table
+        of offsets; no rows), which the descent of every searcher there
         reads."""
         key = ("levels", str(device))
         if key not in self._device:

@@ -19,6 +19,8 @@
 The beam search hop's frontier step (:func:`frontier`) follows the same
 rule: the ``frontier`` kernel for CUDA tensors under any backend but
 ``jnp``, traced or not; its plain version on the CPU and under ``jnp``.
+The descent (:func:`descend`) takes no backend: the ``descend`` kernel for
+CUDA tensors, its plain version on the CPU.
 
 A default call never takes the plain version on a CUDA tensor.  The
 tombstone fold (the reference's ``_fold_lane_mask``) is ``ref.fold_lane_mask``
@@ -35,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import dfloat as dfl
+from repro_torch.kernels import descend as descend_kernel
 from repro_torch.kernels import dfloat_unpack as unpack_kernel
 from repro_torch.kernels import fee_distance as fee_kernel
 from repro_torch.kernels import frontier as frontier_kernel
@@ -186,11 +189,17 @@ def frontier(nodes, sel, adj, visited, width: int, *, backend: str = "auto"):
     return fn(nodes, sel, adj, visited, width)
 
 
+# the descent through the upper levels (``kernels/descend.py``) -> (entries
+# (Q,) int32, moves (L,) int32, the levels the kernel walked): the wrapper
+# takes the plain version ``ref.descend_ref`` for CPU tensors itself
+descend = descend_kernel.descend
+
+
 # the wrappers whose ``.launches`` count their kernel's launches
 COUNTED = (fee_kernel.fee_distance, fee_kernel.fee_distance_packed,
            fee_kernel.fee_distance_skipdma, fee_kernel.fee_distance_packed_skipdma,
            fee_kernel.fee_distance_tiered, unpack_kernel.dfloat_unpack,
-           frontier_kernel.frontier)
+           frontier_kernel.frontier, descend_kernel.descend)
 
 
 def launch_counts() -> list[int]:

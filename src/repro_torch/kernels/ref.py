@@ -3,7 +3,9 @@
 They run on any device.  The kernel wrappers take them for CPU tensors, the
 CPU tests hold them against the JAX package's kernels and oracles (and
 :func:`frontier_ref` against the JAX package's hop pieces), and
-``chip_smoke.py`` holds each kernel against them on the card.  The skip-DMA
+``chip_smoke.py`` holds each kernel against them on the card
+(:func:`descend_ref` against the ``descend`` kernel it stands in for on the
+CPU).  The skip-DMA
 kernels compute the contracts of ``fee_distance_gather_ref`` and
 ``fee_distance_packed_gather_ref``; they differ only in which bytes they
 move, so they have no plain version of their own.
@@ -188,3 +190,57 @@ def frontier_ref(nodes, sel, adj, visited, width):
     visited.scatter_add_(1, (safe >> 5).long(),
                          torch.where(fresh, search._bits(safe), 0))
     return nbrs, safe, fresh, src
+
+
+def greedy_level(ids_l, adj_l, rows, queries, cur, *, metric: str):
+    """One upper level's greedy walk for a whole query batch: each query
+    moves to its nearest neighbour while that improves its distance (a
+    query that stops improving is a fixed point of the step).  ``cur`` and
+    the result are positions in the level; each step reads the rows it
+    compares, by global id.  Returns the positions reached, the steps taken
+    (each one a sync) and the moves of all queries together."""
+    c = cur.long()
+    d = fee_mod.exact_distance(queries, rows(ids_l[c])[:, None, :],
+                               metric=metric)[:, 0]
+    steps = moves = 0
+    while True:
+        steps += 1
+        nb = adj_l[c].long()
+        nd = fee_mod.exact_distance(queries, rows(ids_l[nb]), metric=metric)
+        j = torch.argmin(nd, dim=1, keepdim=True)      # first minimum
+        ndj = torch.gather(nd, 1, j)[:, 0]
+        better = ndj < d
+        moved = int(better.sum())
+        if not moved:
+            return c, steps, moves
+        moves += moved
+        c = torch.where(better, torch.gather(nb, 1, j)[:, 0], c)
+        d = torch.minimum(ndj, d)
+
+
+def level_start(ids_l, entries):
+    """Each entry's position among a level's sorted ids, position 0 where
+    an entry is not there."""
+    pos = torch.searchsorted(ids_l, entries).clamp_(max=len(ids_l) - 1)
+    return torch.where(ids_l[pos] == entries, pos, 0)
+
+
+def descend_ref(levels, vectors, storage: str, dfloat_cfg, queries, metric: str):
+    """Plain version of the ``descend`` kernel: greedy top-down routing
+    through ``levels`` (a ``search.DeviceLevels``, read through its views)
+    over the rows ``search.row_reader`` gives for ``storage``, every query
+    of the batch through every step of a level.  A level's entries are
+    found among its sorted ids by ``torch.searchsorted`` (position 0 where
+    an entry is not there).  Returns (entries (Q,) int32, moves (L,) int32:
+    a level's steps less one, the most moves any query made there, bottom
+    level first)."""
+    rows = search.row_reader(vectors, storage, dfloat_cfg)
+    entries = torch.full((queries.shape[0],), levels.entry, dtype=torch.int32,
+                         device=queries.device)
+    moves = []
+    for ids, adj in reversed(levels.levels):
+        cur, n, _ = greedy_level(ids, adj, rows, queries, level_start(ids, entries),
+                                 metric=metric)
+        moves.append(n - 1)
+        entries = ids[cur]
+    return entries, torch.tensor(moves[::-1], dtype=torch.int32, device=queries.device)

@@ -31,7 +31,8 @@ instrumented from the inside, with live spans and no request id::
     serve.batch                 one batcher run (batch, n, bucket)
       search.call               one ``run()`` (q, storage, ef)
         search.transform        host sPCA, queries copied to the device
-        search.descend          upper-level greedy descent (levels, steps)
+        search.descend          upper-level greedy descent (levels, steps,
+                                kernel_levels)
         search.beam             one query chunk's beam loop (q, hops)
           search.sync           the per-hop termination readback (mark)
           search.hop            one hop's launches and counter sums (mark)

@@ -298,9 +298,8 @@ class MutableIndex:
         self._sync_adj()
         q = torch.from_numpy(np.ascontiguousarray(rotated, np.float32)
                              ).to(self.device)
-        entries = search_mod.descend_entry(
-            self._levels, search_mod.row_reader(self._rot_d, "f32"), q,
-            self.spec.metric)
+        entries = search_mod.descend_entry(self._levels, self._rot_d, "f32", None,
+                                           q, self.spec.metric)
         out = search_mod.make_searcher(
             self._rot_d, self._adj_d, cfg,
             tombstone=tail_tombstone(self._n, self.capacity, self.device))(

@@ -37,6 +37,8 @@ and RaBitQ baselines fitted on the card must repeat bit for bit and meet the
 CPU's fit at the CPU tests' bounds; the twins of the quickstart and
 distributed-search examples must run on the card through their kernels.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -771,6 +773,326 @@ def test_cuda_frontier_search_equals_cpu_on_exact_data(cuda, expand, trace):
     assert hops > 0 and beams["cuda"]["frontier_hops"] == hops
     assert beams["cuda"]["graph_hops"] == (0 if trace else hops)
     assert beams["cpu"]["frontier_hops"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the descent through the upper levels: one ``descend`` kernel a call
+# ---------------------------------------------------------------------------
+
+
+def _upper_graph(x, metric, seed):
+    """A graph of the upper levels ``build_graph`` makes at m = 16 over the
+    rows ``x`` (a CUDA tensor); level 0 is a placeholder (the descent never
+    reads it), so no base-level kNN is computed."""
+    from repro_torch.core import graph as graph_mod
+
+    ups = graph_mod.upper_levels(x, 16, metric, np.random.default_rng(seed), n_long=4)
+    base = (np.arange(x.shape[0], dtype=np.int32), np.zeros((x.shape[0], 1), np.int32))
+    return graph_mod.GraphIndex(levels=[base] + ups, entry=int(ups[-1][0][0]), m=16)
+
+
+def _dist64(q, x, metric):
+    """Float64 distances of rows ``x`` (Q, C, D) to queries ``q`` (Q, D)."""
+    q, x = q.double()[:, None, :], x.double()
+    return ((x - q) ** 2).sum(-1) if metric == "l2" else -(x * q).sum(-1)
+
+
+def _assert_level_one_fixed_point(levels, rows, q, entries, metric):
+    """Every entry is a level-1 node none of whose neighbours is nearer in
+    float64 by more than 1e-6 of its own distance: the greedy walk's end."""
+    ids1, adj1 = levels.levels[0]
+    pos = torch.searchsorted(ids1, entries)
+    assert torch.equal(ids1[pos.clamp(max=len(ids1) - 1)], entries)
+    d_e = _dist64(q, rows(entries)[:, None, :], metric)[:, 0]
+    d_nb = _dist64(q, rows(ids1[adj1[pos].long()]), metric)
+    assert bool((d_nb.min(1).values >= d_e - 1e-6 * d_e.abs()).all())
+
+
+def _descend_both(levels, vectors, storage, cfg, q, metric):
+    """The kernel's and the plain version's (entries, moves) on the card,
+    and the ``search.descend`` span of a traced ``descend_entry`` call.  The
+    wrapper launches once and reports every level walked, or, at Q = 0,
+    launches nothing and reports none."""
+    from repro_torch import obs
+    from repro_torch.core import search
+    from repro_torch.kernels import descend as descend_kernel
+
+    before = descend_kernel.descend.launches
+    *got, walked = descend_kernel.descend(levels, vectors, storage, cfg, q, metric)
+    launched = q.shape[0] > 0
+    assert descend_kernel.descend.launches == before + launched
+    assert walked == (len(levels.spans) if launched else 0)
+    want = ref.descend_ref(levels, vectors, storage, cfg, q, metric)
+    obs.enable_tracing()
+    obs.tracer.clear()
+    try:
+        entries = search.descend_entry(levels, vectors, storage, cfg, q, metric)
+        span, = [s.attrs for s in obs.tracer.spans() if s.name == "search.descend"]
+    finally:
+        obs.disable_tracing()
+        obs.tracer.clear()
+    assert torch.equal(entries, got[0])
+    return got, want, span
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", beam_cases.STORAGES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_descend_kernel_matches_plain_on_unit_indexes(cuda_units, metric, storage):
+    """On the tests' small indexes (unit l2 and unit_ip, Dfloat, built on
+    the card) the ``descend`` kernel gives the plain version's entries for
+    every query and its moves on every level, at Q = 0, 1, 4 and 1,000; the
+    ``search.descend`` span's steps equal the plain loop's and
+    ``kernel_levels`` every level (none at Q = 0); each entry is a greedy fixed point at
+    level 1; and the kernel's read of every upper-level row is bit-equal to
+    the storage's row rule."""
+    from repro_torch.core import search
+    from repro_torch.index import SearchParams
+    from repro_torch.index.backends import _dfloat_cfg
+    from repro_torch.kernels import descend as descend_kernel
+
+    cuda = torch.device("cuda")
+    db, idx = cuda_units[metric]
+    params = SearchParams(ef=48, k=10, storage=storage)
+    vectors = idx.device_db(params.use_dfloat, storage, cuda)
+    cfg = _dfloat_cfg(idx, params)
+    levels = idx.device_levels(cuda)
+    n_levels = len(levels.spans)
+    assert n_levels >= 1
+    rows = search.row_reader(vectors, storage, cfg)
+    ids = levels.ids.long()
+    assert torch.equal(descend_kernel.decode_rows(vectors, storage, cfg, ids), rows(ids))
+    rng = np.random.default_rng(5)
+    for n_q in (0, 1, 4, 1000):
+        q = db.queries[np.arange(n_q) % len(db.queries)]
+        q = q + 0.05 * rng.standard_normal(q.shape).astype(np.float32)
+        qt = torch.from_numpy(idx.transform_queries(q.reshape(-1, idx.dim))).to(cuda)
+        (entries, moves), (want_e, want_m), span = _descend_both(
+            levels, vectors, storage, cfg, qt, idx.metric)
+        assert entries.dtype == moves.dtype == torch.int32 and entries.shape == (n_q,)
+        assert torch.equal(entries, want_e), n_q
+        assert torch.equal(moves, want_m), n_q
+        assert span == dict(levels=n_levels, steps=n_levels + int(want_m.sum()),
+                            kernel_levels=n_levels if n_q else 0), n_q
+        if n_q:
+            _assert_level_one_fixed_point(levels, rows, qt, entries, idx.metric)
+    assert n_q > 1 and len(torch.unique(entries)) > 1
+
+
+def _layouts(x):
+    """Packed layouts of the rows ``x`` (numpy) that the descent reads: sift's
+    one 16-bit run, gist's one 12-bit run (at D = 960), three runs, and
+    bursts of 64 bits (the per-field units)."""
+    d = x.shape[1]
+    out = {"one run": dfl.make_config(d, [(16 if d < 960 else 12,
+                                           dfl.EXP_BITS[16 if d < 960 else 12], d)], x)}
+    if d == 64:
+        out["three runs"] = dfl.make_config(d, [(21, 6, 20), (14, 5, 30), (12, 4, 14)], x)
+        out["64-bit bursts"] = dfl.make_config(d, [(16, 5, 40), (12, 4, 24)], x,
+                                               burst_bits=64)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 960])
+def test_cuda_descend_rows_equal_the_row_rule(cuda, d):
+    """The kernel's read and decode of a row (``descend.decode_rows``, its
+    units through the kernel's own load and decode) against
+    ``search.row_reader``, bit for bit: f32 rows (16 B and 4 B units, and
+    D = 30, whose last unit is short), packed rows at sift's 16-bit and
+    gist's 12-bit layout, three runs and 64-bit bursts (field units), at
+    pitch W and W + 4 with the base on and off 16 B, and tier pairs at every
+    split."""
+    from repro_torch.core import search
+    from repro_torch.kernels import descend as descend_kernel
+
+    rng = np.random.default_rng(d)
+    n = 300
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    ids = torch.from_numpy(rng.integers(0, n, 2 * n)).to(cuda)
+    same = lambda v, s, c: torch.equal(descend_kernel.decode_rows(v, s, c, ids),
+                                       search.row_reader(v, s, c)(ids))
+    xf = torch.from_numpy(x).to(cuda)
+    assert same(xf, "f32", None)
+    assert same(_row_view(xf, 0, 1), "f32", None)          # off 16 B: 4 B units
+    assert same(xf[:, :30].contiguous(), "f32", None)     # a short last unit
+    for name, cfg in _layouts(x).items():
+        packed = torch.from_numpy(dfl.pack_db(x, cfg).view(np.int32)).to(cuda)
+        for pad, offset in ((0, 0), (4, 0), (0, 1), (4, 1)):
+            assert same(_row_view(packed, pad, offset), "packed", cfg), (name, pad, offset)
+        seg = 16
+        for split in range(0, d // seg + 1, max(1, d // seg // 4)):
+            tcfg = dfl.split_config(cfg, split * seg)
+            tiers = tuple(torch.from_numpy(t.view(np.int32)).to(cuda)
+                          for t in dfl.pack_tiers(x, cfg, split * seg))
+            assert same(tiers, "tiered", tcfg), (name, split)
+
+
+@pytest.fixture(scope="module")
+def sift_shape():
+    """Clustered rows at SIFT1M's shape (1,000,000 x 128, L2) made on the
+    card, 10,000 queries near them, the upper levels ``build_graph`` makes
+    at m = 16 (62,500 / 3,906 / 244 / 24 nodes, 20 neighbours a node) and
+    the rows packed at sift's 16-bit layout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.core import search
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    n, d, n_q = 1_000_000, 128, 10_000
+    centers = 3.0 * torch.randn((64, d), generator=g, device=dev)
+    x = centers[torch.randint(0, 64, (n,), generator=g, device=dev)] + torch.randn(
+        (n, d), generator=g, device=dev)
+    q = x[torch.randint(0, n, (n_q,), generator=g, device=dev)] + 0.5 * torch.randn(
+        (n_q, d), generator=g, device=dev)
+    graph = _upper_graph(x, "l2", 31)
+    cfg = dfl.make_config(d, [(16, dfl.EXP_BITS[16], d)], x)
+    packed = torch.from_numpy(dfl.pack_db(x, cfg).view(np.int32)).to(dev)
+    return dict(levels=search.DeviceLevels.of(graph, dev), q=q,
+                storage={"f32": (x, None), "packed": (packed, cfg)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["f32", "packed"])
+def test_cuda_descend_kernel_at_sift_shape(sift_shape, storage):
+    """At sift's shape (10,000 queries, four upper levels of 20 neighbours)
+    the kernel's entries equal the plain version's for at least 99.9% of the
+    queries (its f32 sums are not torch's: a near tie may walk another
+    way), every kernel entry is a greedy fixed point at level 1 in float64,
+    and where all entries agree so do the moves of every level."""
+    from repro_torch.core import search
+
+    levels, q = sift_shape["levels"], sift_shape["q"]
+    assert [s[1] for s in levels.spans] == [62_500, 3_906, 244, 24]
+    vectors, cfg = sift_shape["storage"][storage]
+    (entries, moves), (want_e, want_m), span = _descend_both(levels, vectors, storage,
+                                                            cfg, q, "l2")
+    agree = float((entries == want_e).float().mean())
+    assert agree >= 0.999, agree
+    _assert_level_one_fixed_point(levels, search.row_reader(vectors, storage, cfg), q,
+                                  entries, "l2")
+    if agree == 1.0:
+        assert torch.equal(moves, want_m)
+    assert span["kernel_levels"] == 4 and span["steps"] == 4 + int(moves.sum())
+    assert int(moves.min()) >= 1 and len(torch.unique(entries)) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_descend_single_upper_level(cuda, metric):
+    """An index of one upper level (400 rows: 25 nodes above the base):
+    the kernel equals the plain version at Q = 0, 1 and 300."""
+    from repro_torch.core import search
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((400, 48), generator=g, device=cuda)
+    graph = _upper_graph(x, metric, 7)
+    levels = search.DeviceLevels.of(graph, cuda)
+    assert len(levels.spans) == 1 and levels.spans[0][1] == 25
+    for n_q in (0, 1, 300):
+        q = torch.randn((n_q, 48), generator=g, device=cuda)
+        (entries, moves), (want_e, want_m), span = _descend_both(levels, x, "f32", None,
+                                                                q, metric)
+        assert torch.equal(entries, want_e) and torch.equal(moves, want_m), n_q
+        assert span == dict(levels=1, steps=1 + int(want_m.sum()),
+                            kernel_levels=1 if n_q else 0)
+    assert int(moves[0]) >= 1
+
+
+def _probe_positions(n):
+    """The positions a level of ``n`` sorted ids ends a warp search's first
+    round at, with a probe step of ceil(n / 32) and of n // 32 + 1: an entry
+    there leaves a range of a multiple of 32 whose answer is its upper end
+    when the step is ceil(n / 32) and n is in 2,049-2,080, 3,073-3,104,
+    ...  Also the first two and the last position."""
+    at = {(k + 1) * step - 1 for step in (-(-n // 32), n // 32 + 1) for k in range(32)}
+    return sorted(p for p in at | {0, 1, n - 1} if p < n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1", [33, 64, 96, 2050, 2080, 3073, 3104])
+def test_cuda_descend_finds_entries_at_every_probe_position(cuda, n1):
+    """The kernel's binary search of a level's sorted ids, at level sizes
+    whose first round leaves a range of a multiple of 32 whose answer is its
+    upper end: a level 1 of ``n1`` ids under a complete top level of the ids
+    at every first-round probe position (and two ids the level lacks, one
+    past its last, which restart the walk at position 0 as the plain
+    version does).  Each query sits on one top node's row, so it walks
+    there and enters level 1 at that node's position.  Entries and moves
+    equal the plain version's query for query, and a query on a node that
+    level 1 holds stays there."""
+    from repro_torch.core import graph as graph_mod
+    from repro_torch.core import search
+
+    rng = np.random.default_rng(n1)
+    n, d, m1 = 4 * n1, 32, 8
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
+    ids1 = np.sort(rng.choice(np.arange(1, n - 1, 2), n1, replace=False)).astype(np.int32)
+    adj1 = rng.integers(0, n1, (n1, m1)).astype(np.int32)
+    held = ids1[_probe_positions(n1)]
+    lacked = np.array([ids1[n1 // 2] + 1, n - 1], np.int32)     # an even id, one past the last
+    ids2 = np.sort(np.concatenate([held, lacked]))
+    n2 = len(ids2)
+    adj2 = np.array([[j for j in range(n2) if j != i] for i in range(n2)], np.int32)
+    base = (np.arange(n, dtype=np.int32), np.zeros((n, 1), np.int32))
+    graph = graph_mod.GraphIndex(levels=[base, (ids1, adj1), (ids2, adj2)],
+                                 entry=int(ids2[0]), m=m1)
+    levels = search.DeviceLevels.of(graph, cuda)
+    on = torch.from_numpy(np.repeat(ids2, 3)).to(cuda).long()
+    q = x[on] + 1e-3 * torch.randn((len(on), d), device=cuda,
+                                   generator=torch.Generator(device=cuda).manual_seed(n1))
+    (entries, moves), (want_e, want_m), span = _descend_both(levels, x, "f32", None, q, "l2")
+    assert torch.equal(entries, want_e) and torch.equal(moves, want_m)
+    assert span == dict(levels=2, steps=2 + int(want_m.sum()), kernel_levels=2)
+    kept = torch.from_numpy(np.isin(np.repeat(ids2, 3), ids1)).to(cuda)
+    assert torch.equal(entries.long()[kept], on[kept])
+    assert int(kept.sum()) == 3 * len(held) and not bool(kept.all())
+
+
+@pytest.mark.cuda
+def test_cuda_descend_rejects_bad_inputs(cuda):
+    """The kernel's wrapper raises on what the kernel does not take (a
+    wrong dtype, device or shape of the queries, rows or levels, a level
+    wider than ``MAX_M``, an unknown metric), and never falls back to the
+    plain version on the card."""
+    from repro_torch.core import search
+    from repro_torch.kernels import descend as descend_kernel
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((400, 32), generator=g, device=cuda)
+    levels = search.DeviceLevels.of(_upper_graph(x, "l2", 3), cuda)
+    q = torch.randn((5, 32), generator=g, device=cuda)
+    fn = lambda **kw: descend_kernel.descend(**{**dict(
+        levels=levels, vectors=x, storage="f32", dfloat_cfg=None, queries=q,
+        metric="l2"), **kw})
+    before = descend_kernel.descend.launches
+    with pytest.raises(TypeError, match="queries"):
+        fn(queries=q.double())
+    with pytest.raises(TypeError, match="queries"):
+        fn(queries=q.t().contiguous().t())
+    with pytest.raises(TypeError, match="f32 rows"):
+        fn(queries=q[:, :16].contiguous())
+    with pytest.raises(TypeError, match="f32 rows"):
+        fn(vectors=x.double())
+    with pytest.raises(ValueError, match="rows on cpu"):
+        fn(vectors=x.cpu())
+    with pytest.raises(TypeError, match="level ids"):
+        fn(levels=dataclasses.replace(levels, ids=levels.ids.long()))
+    with pytest.raises(TypeError, match="level table"):
+        fn(levels=dataclasses.replace(levels, table=levels.table.int()))
+    with pytest.raises(ValueError, match="levels on cpu"):
+        fn(levels=dataclasses.replace(levels, adj=levels.adj.cpu()))
+    wide = dataclasses.replace(levels, spans=((0, 25, 0, 300),))
+    with pytest.raises(ValueError, match="neighbours a node"):
+        fn(levels=wide)
+    with pytest.raises(ValueError, match="metric"):
+        fn(metric="cosine")
+    cfg = dfl.make_config(32, [(16, 5, 32)], x)
+    packed = torch.from_numpy(dfl.pack_db(x, cfg).view(np.int32)).to(cuda)
+    with pytest.raises(ValueError, match="words per row"):
+        fn(vectors=packed[:, :-4], storage="packed", dfloat_cfg=cfg)
+    assert descend_kernel.descend.launches == before
 
 
 @pytest.mark.cuda

@@ -344,10 +344,11 @@ def test_result_shapes_and_dtypes_match_jax(pair, storage, trace, n_q):
 @pytest.mark.parametrize("storage", beam_cases.STORAGES)
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_device_descent_equals_the_host_descent(pair, metric, storage):
-    """The descent over the device levels, reading rows through the storage's
-    row rule, against the descent as it ran on the host (levels copied and
-    mapped a call, whole levels read): the entries and the greedy steps bit
-    for bit."""
+    """The descent over the device levels (on the CPU, the plain version,
+    reading rows through the storage's row rule) against the descent as it
+    ran on the host (levels copied and mapped a call, whole levels read):
+    the entries and the greedy steps bit for bit, and no level walked by
+    the kernel."""
     from repro_torch import obs
 
     db, _, port, *_ = pair[metric]
@@ -355,12 +356,12 @@ def test_device_descent_equals_the_host_descent(pair, metric, storage):
     dev = torch.device("cpu")
     q = torch.from_numpy(port.transform_queries(db.queries))
     vectors = port.device_db(params.use_dfloat, storage, dev)
-    rows = tsearch.row_reader(vectors, storage, beam_cases.backends._dfloat_cfg(
-        port, params), params.fee_backend)
     obs.enable_tracing()
     obs.tracer.clear()
     try:
-        got = tsearch.descend_entry(port.device_levels(dev), rows, q, port.metric)
+        got = tsearch.descend_entry(port.device_levels(dev), vectors, storage,
+                                    beam_cases.backends._dfloat_cfg(port, params), q,
+                                    port.metric)
         span, = [s.attrs for s in obs.tracer.spans() if s.name == "search.descend"]
     finally:
         obs.disable_tracing()
@@ -368,8 +369,88 @@ def test_device_descent_equals_the_host_descent(pair, metric, storage):
     want, steps = beam_cases.parent_descent(port, q, params, dev)
     assert got.dtype == torch.int32 and got.device == dev
     assert np.array_equal(got.numpy(), want)
-    assert span == dict(levels=len(port.graph.levels) - 1, steps=steps)
+    assert span == dict(levels=len(port.graph.levels) - 1, steps=steps, kernel_levels=0)
     assert steps > span["levels"] > 0 and len(np.unique(want)) > 1
+
+
+def test_device_levels_flat_layout(pair):
+    """``DeviceLevels`` holds the upper levels in one flat layout: the ids
+    and the adjacency end to end, bottom level first, and a table of each
+    level's offsets and sizes (on the device, and as host ints) whose views
+    give each level's ids and adjacency exactly as ``graph.levels[1:]``."""
+    _, _, port, *_ = pair["l2"]
+    ups = port.graph.levels[1:]
+    levels = tsearch.DeviceLevels.of(port.graph, torch.device("cpu"))
+    assert levels.entry == port.graph.entry == int(ups[-1][0][0])
+    assert levels.ids.dtype == levels.adj.dtype == torch.int32
+    assert levels.ids.dim() == levels.adj.dim() == 1
+    assert np.array_equal(levels.ids.numpy(), np.concatenate([ids for ids, _ in ups]))
+    assert np.array_equal(levels.adj.numpy(), np.concatenate([a.ravel() for _, a in ups]))
+    assert levels.table.dtype == torch.int64
+    assert levels.table.tolist() == [list(s) for s in levels.spans]
+    i0 = a0 = 0
+    for (ids, adj), span, (vi, va) in zip(ups, levels.spans, levels.levels):
+        assert span == (i0, len(ids), a0, adj.shape[1])
+        i0, a0 = i0 + len(ids), a0 + adj.size
+        assert np.array_equal(vi.numpy(), ids) and np.array_equal(va.numpy(), adj)
+        assert vi.data_ptr() == levels.ids[span[0]:].data_ptr()   # views, no copies
+        assert va.data_ptr() == levels.adj[span[2]:].data_ptr()
+    assert len(levels.levels) == len(ups) > 1
+
+
+def test_descent_of_a_graph_without_upper_levels():
+    """A graph with no upper level descends to its entry node for every
+    query, with a span of no level and no step."""
+    from repro_torch import obs
+    from repro_torch.core.graph import GraphIndex
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((40, 8)).astype(np.float32))
+    graph = GraphIndex(levels=[(np.arange(40, dtype=np.int32),
+                                rng.integers(0, 40, (40, 4)).astype(np.int32))],
+                       entry=7, m=4)
+    levels = tsearch.DeviceLevels.of(graph, torch.device("cpu"))
+    assert levels.spans == () and tuple(levels.table.shape) == (0, 4)
+    obs.enable_tracing()
+    obs.tracer.clear()
+    try:
+        got = tsearch.descend_entry(levels, x, "f32", None, x[:5], "l2")
+        span, = [s.attrs for s in obs.tracer.spans() if s.name == "search.descend"]
+    finally:
+        obs.disable_tracing()
+        obs.tracer.clear()
+    assert got.tolist() == [7] * 5 and got.dtype == torch.int32
+    assert span == dict(levels=0, steps=0, kernel_levels=0)
+
+
+
+@pytest.mark.parametrize("storage", beam_cases.STORAGES)
+def test_descend_dispatch_takes_the_plain_version_on_the_cpu(pair, storage):
+    """``kops.descend`` and the kernel's wrapper on CPU tensors are the
+    plain version (the kernel's launch count does not move, and the wrapper
+    reports no level walked in the kernel), with no backend to choose.  The
+    per-level moves are the plain loop's steps less one, bottom level
+    first."""
+    from repro_torch.kernels import descend as descend_kernel
+
+    db, _, port, *_ = pair["ip"]
+    params = dataclasses.replace(BASE, storage=storage)
+    dev = torch.device("cpu")
+    q = torch.from_numpy(port.transform_queries(db.queries[:50]))
+    args = (port.device_levels(dev), port.device_db(params.use_dfloat, storage, dev),
+            storage, beam_cases.backends._dfloat_cfg(port, params), q, port.metric)
+    before = descend_kernel.descend.launches
+    got = kops.descend(*args)
+    assert kops.descend is descend_kernel.descend
+    entries, moves, walked = got
+    want_e, want_m = kref.descend_ref(*args)
+    assert walked == 0 and torch.equal(entries, want_e) and torch.equal(moves, want_m)
+    assert descend_kernel.descend.launches == before
+    assert entries.dtype == moves.dtype == torch.int32
+    assert moves.shape == (len(port.graph.levels) - 1,) and int(moves.min()) >= 0
+    want, steps = beam_cases.parent_descent(port, q, params, dev)
+    assert np.array_equal(entries.numpy(), want)
+    assert steps == len(moves) + int(moves.sum())
 
 
 def test_device_levels_are_built_once(pair, monkeypatch):

@@ -56,8 +56,8 @@ def beam_inputs(idx, queries, params, device, tombstone=None):
     dfl_cfg = backends._dfloat_cfg(idx, params)
     q = torch.from_numpy(idx.transform_queries(
         np.asarray(queries, np.float32).reshape(-1, idx.dim))).to(device)
-    rows = search.row_reader(vectors, params.storage, dfl_cfg, params.fee_backend)
-    entries = search.descend_entry(idx.device_levels(device), rows, q, idx.metric)
+    entries = search.descend_entry(idx.device_levels(device), vectors, params.storage,
+                                   dfl_cfg, q, idx.metric)
     fee = FeeParams.coerce(backends._fee_params(idx, params, None, device),
                            device=device)
     tomb = (idx.device_tombstone(device) if tombstone is None
