@@ -11,6 +11,14 @@ vectors the levels agree with the JAX package's up to distance ties.
 
 Matrix products are taken in full float32: the port never enables TF32.
 
+The base level's kNN lists come from one of two builds (``knn``): the exact
+scan of every row against every row (``"exact"``, O(N^2) products: 1.9e16
+FLOP at ten million rows), or ``"partitioned"``, which splits the rows into
+k-means lists of about :data:`LIST_ROWS` rows, puts each row in its
+:data:`LIST_PROBES` nearest lists, takes exact kNN inside each list and
+merges each row's candidates (:func:`_partitioned_knn`).  The prune, the
+long edges and the upper levels are the same after either.
+
 The data-aware neighbour-list mapping (``map_owners``, ``build_dam``) is the
 JAX package's numpy, copied: the ndpsim backend maps vectors to DIMM
 sub-channels with it.
@@ -18,6 +26,7 @@ sub-channels with it.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -31,6 +40,10 @@ class GraphIndex:
     levels: list          # list of (node_ids (Nl,), adjacency (Nl, M) int32 into node_ids-local space)
     entry: int            # entry node id (global) = levels[-1].node_ids[0]
     m: int
+    # the build's seconds by phase and, for a partitioned build, the share
+    # of the exact lists it found; empty for a graph read back from the
+    # cache, or made elsewhere
+    timings: dict = dataclasses.field(default_factory=dict)
 
     @property
     def base_adjacency(self) -> np.ndarray:
@@ -41,26 +54,238 @@ class GraphIndex:
         return self.levels[0][1].shape[0]
 
 
+KNN_BUILDS = ("exact", "partitioned")
+# The partitioned build: rows a list on average (C = ceil(N / LIST_ROWS)
+# lists), the lists each row joins, Lloyd rounds, sampled rows a list that
+# train the k-means, and the rows whose lists are checked against an exact
+# scan (``knn_recall``).
+LIST_ROWS = 2048
+LIST_PROBES = 5
+KMEANS_ROUNDS = 10
+KMEANS_SAMPLE = 64
+RECALL_ROWS = 10_000
+# a list's padded size is a multiple of this (lists of one padded size are
+# scored together)
+_LIST_PAD = 64
+
+
+def _knn_scores(vectors: torch.Tensor, k: int, metric: str,
+                block_bytes: int = 1 << 32, rows: torch.Tensor | None = None):
+    """Exact kNN of rows of a tensor against all its rows, self excluded:
+    ``(scores, ids)``, each (R, k) on its device, nearest first, for the
+    rows ``rows`` (an int64 id tensor; default every row in order).  Row
+    blocks keep the (block, N) f32 score matrix under ``block_bytes``;
+    scores are the JAX package's ``|x|^2 + |y|^2 - 2 x.y`` (ip: ``-x.y``)."""
+    n = vectors.shape[0]
+    n_q = n if rows is None else rows.shape[0]
+    sq = (vectors ** 2).sum(1)
+    block = max(1, block_bytes // (4 * n))
+    vals, ids = [], []
+    for s in range(0, n_q, block):
+        e = min(s + block, n_q)
+        if rows is None:
+            own = torch.arange(s, e, device=vectors.device)
+            q, sq_q = vectors[s:e], sq[s:e]
+        else:
+            own = rows[s:e]
+            q, sq_q = vectors[own], sq[own]
+        dot = q @ vectors.T
+        if metric == "l2":
+            scores = sq_q[:, None] + sq[None, :] - 2 * dot
+        else:
+            scores = -dot
+        scores[torch.arange(e - s, device=vectors.device), own] = float("inf")
+        v, i = torch.topk(scores, k, dim=1, largest=False)
+        vals.append(v)
+        ids.append(i)
+    return torch.cat(vals), torch.cat(ids)
+
+
 def _knn_adjacency(vectors: torch.Tensor, m: int, metric: str,
                    block_bytes: int = 1 << 32) -> np.ndarray:
     """Exact kNN lists (nearest first, no self loops) of the rows of a
-    tensor, in row blocks whose (block, N) f32 score matrix stays under
-    ``block_bytes``; scores use the JAX package's ``|x|^2 + |y|^2 - 2 x.y``."""
-    n = vectors.shape[0]
-    sq = (vectors ** 2).sum(1)
-    block = max(1, block_bytes // (4 * n))
+    tensor (:func:`_knn_scores` over every row), as host int32."""
+    return _knn_scores(vectors, m, metric, block_bytes)[1].to(torch.int32).cpu().numpy()
+
+
+def _nearest_centroids(x: torch.Tensor, cent: torch.Tensor, r: int,
+                       block_bytes: int = 1 << 30) -> torch.Tensor:
+    """(N, r) int64: each row's ``r`` nearest centroids in L2, nearest
+    first (the row's own ``|x|^2`` is left out: it ranks nothing)."""
+    sq_c = (cent ** 2).sum(1)
+    block = max(1, block_bytes // (4 * cent.shape[0]))
     out = []
-    for s in range(0, n, block):
-        e = min(s + block, n)
-        dot = vectors[s:e] @ vectors.T
-        if metric == "l2":
-            scores = sq[s:e, None] + sq[None, :] - 2 * dot
-        else:
-            scores = -dot
-        rows = torch.arange(e - s, device=vectors.device)
-        scores[rows, rows + s] = float("inf")               # no self loops
-        out.append(torch.topk(scores, m, dim=1, largest=False).indices)
-    return torch.cat(out).to(torch.int32).cpu().numpy()
+    for s in range(0, x.shape[0], block):
+        scores = sq_c[None, :] - 2 * (x[s: s + block] @ cent.T)
+        out.append(torch.topk(scores, r, dim=1, largest=False).indices)
+    return torch.cat(out)
+
+
+def _kmeans(x: torch.Tensor, c: int, rng) -> torch.Tensor:
+    """(c, D) f32 centroids of ``KMEANS_ROUNDS`` Lloyd rounds in L2 over a
+    sample of ``KMEANS_SAMPLE * c`` rows drawn by ``rng``, started from
+    ``c`` of them.  The assignments run on the rows' device; the means are
+    float64 sums on the host in sample order, so the centroids do not
+    depend on the order of a device's atomic adds.  A list that draws no
+    row keeps its centroid."""
+    n, d = x.shape
+    sample = np.sort(rng.choice(n, min(n, KMEANS_SAMPLE * c), replace=False))
+    xs = x[torch.as_tensor(sample, device=x.device)]
+    xs_host = xs.double().cpu().numpy()
+    cent = xs_host[np.sort(rng.choice(len(sample), c, replace=False))]
+    for _ in range(KMEANS_ROUNDS):
+        near = _nearest_centroids(
+            xs, torch.as_tensor(cent, dtype=torch.float32, device=x.device), 1)
+        a = near[:, 0].cpu().numpy()
+        count = np.bincount(a, minlength=c)
+        sums = np.stack([np.bincount(a, weights=xs_host[:, j], minlength=c)
+                         for j in range(d)], axis=1)
+        live = count > 0
+        cent = cent.copy()
+        cent[live] = sums[live] / count[live, None]
+    return torch.as_tensor(cent, dtype=torch.float32, device=x.device)
+
+
+def _list_knn(x: torch.Tensor, sq: torch.Tensor, members: torch.Tensor,
+              count: torch.Tensor, k: int, metric: str):
+    """Exact kNN inside a batch of lists of one padded size: ``members``
+    (B, S) global row ids (anything past a list's ``count`` is padding).
+    Returns ``(scores, ids)``, (B, S, k), nearest first; a slot with fewer
+    than ``k`` other members reads ``inf`` and -1 past them."""
+    b, size = members.shape
+    slot = torch.arange(size, device=x.device)
+    pad = slot[None, :] >= count[:, None]                  # (B, S)
+    xb = x[members]                                        # (B, S, D)
+    dot = torch.bmm(xb, xb.transpose(1, 2))
+    if metric == "l2":
+        sqb = sq[members]
+        # (|x|^2 + |y|^2) - 2 x.y, as the exact scan computes it
+        scores = sqb[:, :, None] + sqb[:, None, :]
+        scores.sub_(dot.mul_(2))
+    else:
+        scores = dot.neg_()
+    del dot
+    scores.masked_fill_(pad[:, None, :], float("inf"))
+    scores.diagonal(dim1=1, dim2=2).fill_(float("inf"))   # no self loops
+    v, j = torch.topk(scores, min(k, size), dim=2, largest=False)
+    del scores
+    ids = torch.gather(members, 1, j.reshape(b, -1)).reshape(j.shape)
+    ids = ids.masked_fill(torch.isinf(v), -1)
+    if v.shape[2] < k:
+        fill = (b, size, k - v.shape[2])
+        v = torch.cat([v, v.new_full(fill, float("inf"))], 2)
+        ids = torch.cat([ids, ids.new_full(fill, -1)], 2)
+    return v, ids
+
+
+def _merge_candidates(v: torch.Tensor, ids: torch.Tensor, k: int):
+    """Each row's ``k`` nearest of its candidates ``(v, ids)`` ((R, C)
+    scores and ids, -1 for none): an id found in several lists counts once
+    (its first copy in list order); ties go to the lower id."""
+    ids, order = torch.sort(ids, dim=1, stable=True)
+    v = torch.gather(v, 1, order)
+    dup = torch.zeros_like(ids, dtype=torch.bool)
+    dup[:, 1:] = ids[:, 1:] == ids[:, :-1]
+    v = v.masked_fill(dup | (ids < 0), float("inf"))
+    v, order = torch.sort(v, dim=1, stable=True)
+    ids = torch.gather(ids, 1, order[:, :k])
+    return v[:, :k], ids.masked_fill(torch.isinf(v[:, :k]), -1)
+
+
+def _partitioned_knn(x: torch.Tensor, k: int, metric: str, seed: int,
+                     block_bytes: int = 1 << 32) -> torch.Tensor:
+    """kNN lists (nearest first, no self loops, no repeats) of the rows of
+    ``x`` from a partition: (N, k) int64 on its device.
+
+    The rows are split into C = ceil(N / LIST_ROWS) lists by seeded k-means
+    (:func:`_kmeans`, L2 for either metric: it only finds candidates), and
+    each row joins its r = min(LIST_PROBES, C) nearest lists.  Inside each
+    list the exact kNN of every member among the members comes from batched
+    products over lists of one padded size (scores as the exact scan's);
+    a list too large to batch (one list's scores over ``block_bytes``)
+    takes the exact scan of its rows (:func:`_knn_scores`).  Each row then
+    keeps the ``k`` nearest of the candidates its lists gave it, each id
+    once.  A row whose lists hold fewer than ``k`` other rows takes the
+    exact scan.  With one list (N <= LIST_ROWS) this is the exact scan.
+
+    The build is a function of the rows and ``seed``, and it does not move
+    when an axis of the rows changes sign: every score, k-means assignment
+    and mean is made of products ``x_a * y_a`` and sums, and flipping the
+    sign of axis ``a`` in both factors leaves each product's bits, and so
+    every sum and choice, as they were (a graph cached for one seed's rows
+    serves another's, which differ from it by such flips)."""
+    n = x.shape[0]
+    dev = x.device
+    c = -(-n // LIST_ROWS)
+    if c == 1:
+        return _knn_scores(x, k, metric, block_bytes)[1]
+    r = min(LIST_PROBES, c)
+    lists = _nearest_centroids(x, _kmeans(x, c, np.random.default_rng(seed)), r)
+    # entries (row, probe) grouped by list, rows ascending within a list
+    order = torch.sort(lists.reshape(-1), stable=True).indices
+    member = order // r
+    count = torch.bincount(lists.reshape(-1), minlength=c)
+    start = torch.cumsum(count, 0) - count
+    count_h, start_h = count.cpu().numpy(), start.cpu().numpy()
+    cand_v = torch.empty((n * r, k), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((n * r, k), dtype=torch.int64, device=dev)
+    sq = (x ** 2).sum(1)
+
+    padded = -(-np.maximum(count_h, 1) // _LIST_PAD) * _LIST_PAD
+    for size in np.unique(padded):
+        group = np.flatnonzero(padded == size)
+        per = max(1, block_bytes // (4 * int(size) * int(size)))
+        if per == 1:
+            for li in group:
+                s, cnt = int(start_h[li]), int(count_h[li])
+                rows = member[s: s + cnt]
+                cand_v[s: s + cnt], cand_i[s: s + cnt] = float("inf"), -1
+                if cnt > 1:
+                    kk = min(k, cnt - 1)
+                    cand_v[s: s + cnt, :kk], j = _knn_scores(x[rows], kk, metric,
+                                                             block_bytes)
+                    cand_i[s: s + cnt, :kk] = rows[j]
+            continue
+        slot = torch.arange(int(size), device=dev)
+        for g in range(0, len(group), per):
+            li = torch.as_tensor(group[g: g + per], device=dev)
+            pos = start[li][:, None] + slot[None, :]
+            live = slot[None, :] < count[li][:, None]
+            pos = torch.where(live, pos, 0)
+            v, i = _list_knn(x, sq, member[pos], count[li], k, metric)
+            cand_v[pos[live]], cand_i[pos[live]] = v[live], i[live]
+
+    # each row's r entries, merged
+    where = torch.empty_like(order)
+    where[order] = torch.arange(n * r, device=dev)
+    where = where.view(n, r)
+    out = torch.empty((n, k), dtype=torch.int64, device=dev)
+    step = max(1, (1 << 28) // (r * k * 12))
+    for s in range(0, n, step):
+        p = where[s: s + step]
+        v = cand_v[p].reshape(p.shape[0], -1)
+        i = cand_i[p].reshape(p.shape[0], -1)
+        if r > 1:
+            v, i = _merge_candidates(v, i, k)
+        out[s: s + step] = i
+    short = torch.nonzero((out < 0).any(1)).flatten()
+    if len(short):
+        out[short] = _knn_scores(x, k, metric, block_bytes, rows=short)[1]
+    return out
+
+
+def knn_recall(x: torch.Tensor, ids: torch.Tensor, metric: str, seed: int,
+               n_rows: int = RECALL_ROWS) -> float:
+    """The share of the exact ``k``-NN (``k`` = ``ids.shape[1]``) that the
+    lists ``ids`` ((N, k) on the rows' device) hold, over ``n_rows`` rows
+    drawn by ``seed`` and checked against an exact scan of every row."""
+    n, k = ids.shape
+    rng = np.random.default_rng(seed)
+    rows = torch.as_tensor(np.sort(rng.choice(n, min(n, n_rows), replace=False)),
+                           device=x.device)
+    exact = _knn_scores(x, k, metric, rows=rows)[1]
+    found = (ids[rows][:, :, None] == exact[:, None, :]).any(2)
+    return float(found.sum()) / exact.numel()
 
 
 def _occlusion_prune(vectors: torch.Tensor, adj: np.ndarray, metric: str,
@@ -136,7 +361,16 @@ def upper_levels(x: torch.Tensor, m: int, metric: str, rng, n_long: int,
 def build_graph(vectors: np.ndarray, m: int = 16, metric: str = "l2",
                 prune: bool = True, upper_branch: int = 24,
                 cache_key: str | None = None, seed: int = 0,
-                long_edges: int | None = None, device="cuda") -> GraphIndex:
+                long_edges: int | None = None, device="cuda",
+                knn: str = "exact") -> GraphIndex:
+    """The pruned kNN base level with its long edges and the upper levels.
+    ``knn`` picks the base level's kNN build (:data:`KNN_BUILDS`).  The
+    graph's ``timings`` hold each phase's seconds (``knn_s``, ``prune_s``,
+    ``levels_s``) and, for the partitioned build, ``knn_recall``
+    (:func:`knn_recall`), on the build that measured them: a graph read
+    back from the cache has none."""
+    if knn not in KNN_BUILDS:
+        raise ValueError(f"knn={knn!r}; expected one of {KNN_BUILDS}")
     device = resolve_device(device)
     n_long = max(2, m // 4) if long_edges is None else long_edges
 
@@ -144,18 +378,36 @@ def build_graph(vectors: np.ndarray, m: int = 16, metric: str = "l2",
         rng = np.random.default_rng(seed)
         x = torch.as_tensor(vectors, dtype=torch.float32, device=device)
         n = x.shape[0]
-        base = _knn_adjacency(x, 2 * m if prune else m, metric)
+        k = 2 * m if prune else m
+        t = {}
+        t0 = time.perf_counter()
+        if knn == "exact":
+            base = _knn_adjacency(x, k, metric)
+        else:
+            ids = _partitioned_knn(x, k, metric, seed)
+            base = ids.to(torch.int32).cpu().numpy()
+        t["knn_s"] = time.perf_counter() - t0
+        if knn != "exact":
+            t["knn_recall"] = knn_recall(x, ids, metric, seed)
+            del ids
+        t0 = time.perf_counter()
         if prune:
             base = _occlusion_prune(x, base, metric, m)
         base = _add_long_edges(base, rng, n_long)
+        t["prune_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         out = {"adj0": base, "ids0": np.arange(n, dtype=np.int32)}
         for lvl, (ids, adj) in enumerate(upper_levels(x, m, metric, rng, n_long,
                                                       upper_branch), 1):
             out[f"adj{lvl}"], out[f"ids{lvl}"] = adj, ids
+        t["levels_s"] = time.perf_counter() - t0
+        timings.update(t)
         return out
 
+    timings = {}
     if cache_key is not None:
-        data = cached_npz(f"torch/graph/{cache_key}/m{m}/{metric}/p{prune}/l{n_long}/v1",
+        part = "" if knn == "exact" else f"/knn-{knn}"
+        data = cached_npz(f"torch/graph/{cache_key}/m{m}/{metric}/p{prune}/l{n_long}{part}/v1",
                           _build)
     else:
         data = _build()
@@ -165,7 +417,7 @@ def build_graph(vectors: np.ndarray, m: int = 16, metric: str = "l2",
         levels.append((data[f"ids{lvl}"], data[f"adj{lvl}"]))
         lvl += 1
     entry = int(levels[-1][0][0])
-    return GraphIndex(levels=levels, entry=entry, m=m)
+    return GraphIndex(levels=levels, entry=entry, m=m, timings=timings)
 
 
 # ---------------------------------------------------------------------------

@@ -61,7 +61,8 @@ the storage's one row rule; the beam's first row and its exact (no-FEE)
 scoring read through that rule too.
 
 With the process tracer on (``repro_torch.obs``), a chunk's loop records a
-``search.beam`` span (attributes ``hops``: the loop's iterations,
+``search.beam`` span (attributes ``visited_bytes``: the chunk's bitmap,
+``hops``: the loop's iterations,
 ``graph_hops``: those that were graph replays, and ``frontier_hops``: those
 whose frontier step ran the ``frontier`` kernel) and marks each termination
 readback ``search.sync``, each hop ``search.hop`` and a capture
@@ -463,7 +464,8 @@ def _search_batch(vectors, adj, fee, tombstone, queries, entries, *,
     :meth:`HopGraph.loop`."""
     n_words = -(-_lead(vectors).shape[0] // 32)
     names = counter_names(cfg)
-    with tracer.span("search.beam", q=queries.shape[0]) as beam:
+    with tracer.span("search.beam", q=queries.shape[0],
+                     visited_bytes=4 * n_words * queries.shape[0]) as beam:
         state = _init_state(queries, entries, vectors, cfg, n_words, dfl_cfg)
         hop = lambda s, **kw: _hop_body(s, vectors, adj, queries, fee, cfg,
                                         dfl_cfg, tombstone, **kw)
@@ -503,7 +505,10 @@ def _search_batch(vectors, adj, fee, tombstone, queries, entries, *,
 def make_searcher(vectors, adj, cfg: SearchConfig,
                   fee: FeeParams | dict | None = None, trace: bool = False, *,
                   dfloat_cfg=None, tombstone=None):
-    """Returns search(queries (Q, D), entries (Q,)) -> dict of tensors.
+    """Returns search(queries (Q, D), entries (Q,)) -> dict of tensors.  The
+    beam runs in query chunks, one after another, each a ``search.beam``
+    span: a chunk's visited bitmap (``chunk x ceil(N/32)`` int32 words)
+    stays under ``_VISITED_BYTES``.
 
     ``vectors``/``adj`` are tensors on the device the search runs on: the
     (N, D) f32 DB; for ``cfg.storage == "packed"`` the (N, W) int32 word view

@@ -262,8 +262,9 @@ class Index:
         t0 = time.perf_counter()
         graph = graph_mod.build_graph(db_rot, m=spec.m, metric=spec.metric,
                                       prune=spec.prune, cache_key=cache_key,
-                                      seed=spec.seed, device=dev)
+                                      seed=spec.seed, device=dev, knn=spec.knn)
         t["graph_build_s"] = time.perf_counter() - t0
+        t.update(graph.timings)
 
         # Dfloat search (Alg. 1) with a recall proxy on sampled train queries
         t0 = time.perf_counter()
@@ -305,7 +306,7 @@ class Index:
         path.mkdir(parents=True, exist_ok=True)
         meta = dict(
             format_version=FORMAT_VERSION,
-            spec=dataclasses.asdict(self.spec),
+            spec=self.spec.to_dict(),
             fee=dict(seg=self.fee.seg, p_target=self.fee.p_target,
                      metric=self.fee.metric),
             dfloat=dict(

@@ -44,6 +44,8 @@ class IndexSpec:
                                               # storage="tiered": None = auto
                                               # (energy split), 0 / n_segs =
                                               # the degenerate splits
+    knn: str = "exact"                        # base-level kNN build: "exact"
+                                              # | "partitioned" (core/graph.py)
 
     @classmethod
     def for_db(cls, db, **overrides) -> "IndexSpec":
@@ -52,8 +54,17 @@ class IndexSpec:
         base.update(overrides)
         return cls(**base)
 
+    def to_dict(self) -> dict:
+        """The fields as a dict; ``knn`` only when it is not the default
+        ``"exact"``, so that an exact build's spec is the JAX package's
+        (which has no ``knn``) and either package reads it."""
+        d = dataclasses.asdict(self)
+        if d["knn"] == "exact":
+            del d["knn"]
+        return d
+
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self))
+        return json.dumps(self.to_dict())
 
     @classmethod
     def from_json(cls, s: str) -> "IndexSpec":

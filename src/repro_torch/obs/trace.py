@@ -33,7 +33,8 @@ instrumented from the inside, with live spans and no request id::
         search.transform        host sPCA, queries copied to the device
         search.descend          upper-level greedy descent (levels, steps,
                                 kernel_levels)
-        search.beam             one query chunk's beam loop (q, hops)
+        search.beam             one query chunk's beam loop (q, hops,
+                                visited_bytes: the chunk's bitmap)
           search.sync           the per-hop termination readback (mark)
           search.hop            one hop's launches and counter sums (mark)
         search.readback         results copied to the host

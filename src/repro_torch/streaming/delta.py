@@ -53,12 +53,6 @@ def _op_key(i: int, kind: str) -> str:
     return f"{i:06d}.{kind}"
 
 
-def _spec_dict(mindex) -> dict:
-    import dataclasses
-
-    return dataclasses.asdict(mindex.spec)
-
-
 def segment_metadata(path: str | Path):
     """Yield each segment's metadata dict, in log order (manifest-only)."""
     delta_dir = Path(path) / "delta"
@@ -110,7 +104,7 @@ def save_delta(mindex, path: str | Path) -> Path:
                 raise ValueError(
                     f"{path} holds a delta log for a different base index "
                     "(fingerprint mismatch); refusing to append")
-        elif meta.get("spec") != _spec_dict(mindex):
+        elif meta.get("spec") != mindex.spec.to_dict():
             raise ValueError(
                 f"{path} holds an index built from a different spec; "
                 "refusing to append a delta log to a foreign base")

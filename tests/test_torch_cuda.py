@@ -611,8 +611,9 @@ def test_cuda_graph_loop_equals_eager_loop(cuda_units, metric, storage, tomb):
     the eager loop on the same inputs, at Q = 0, 1, 4, 32 and 1000: ids,
     distances and every counter bit for bit, each kernel's launch count the
     same (one FEE and one frontier launch a hop), and the ``search.beam``
-    span's ``graph_hops`` equal to its ``hops`` (0 on the eager loop) and
-    its ``frontier_hops`` equal to its ``hops`` on both loops."""
+    span's ``graph_hops`` equal to its ``hops`` (0 on the eager loop), its
+    ``frontier_hops`` equal to its ``hops`` on both loops and its
+    ``visited_bytes`` the chunk's bitmap."""
     from repro_torch import obs
     from repro_torch.core import search
     from repro_torch.index import SearchParams
@@ -649,10 +650,11 @@ def test_cuda_graph_loop_equals_eager_loop(cuda_units, metric, storage, tomb):
             hops = int(want["hops"].max()) if n_q else 0
             assert eager_n[ops.COUNTED.index(fee)] == hops, n_q
             assert eager_n[ops.COUNTED.index(frontier_kernel.frontier)] == hops, n_q
+            bitmap = 4 * -(-db.n // 32) * n_q
             assert spans["graph"] == dict(q=n_q, hops=hops, graph_hops=hops,
-                                          frontier_hops=hops), n_q
+                                          frontier_hops=hops, visited_bytes=bitmap), n_q
             assert spans["eager"] == dict(q=n_q, hops=hops, graph_hops=0,
-                                          frontier_hops=hops), n_q
+                                          frontier_hops=hops, visited_bytes=bitmap), n_q
             if tomb and n_q:
                 dead = np.flatnonzero(np.unpackbits(
                     words.view(np.uint8), bitorder="little")[:db.n])
@@ -660,6 +662,134 @@ def test_cuda_graph_loop_equals_eager_loop(cuda_units, metric, storage, tomb):
     finally:
         obs.disable_tracing()
         obs.tracer.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", beam_cases.STORAGES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_query_chunks_equal_one_chunk(cuda_units, metric, storage, monkeypatch):
+    """On the card, under the CUDA-graph loop: a visited-bitmap budget of
+    333 queries splits a call of 1,000 into four chunks (333, 333, 333, 1),
+    each captured and replayed on its own state; ids, distances and every
+    counter equal one chunk's bit for bit, the ``search.call`` span holds
+    four ``search.beam`` spans, each with its chunk's bitmap in
+    ``visited_bytes`` and a replay for every hop."""
+    from repro_torch import obs
+    from repro_torch.core import search
+    from repro_torch.index import SearchParams, backends
+
+    cuda = torch.device("cuda")
+    db, idx = cuda_units[metric]
+    params = SearchParams(ef=48, k=10, storage=storage)
+    rng = np.random.default_rng(3)
+    q = db.queries[np.arange(1000) % len(db.queries)]
+    q = q + 0.01 * rng.standard_normal(q.shape).astype(np.float32)
+    n_words = -(-idx.n // 32)
+    want = backends.local_searcher(idx, params, device=cuda)(q)
+    monkeypatch.setattr(search, "_VISITED_BYTES", 4 * n_words * 333)
+    obs.enable_tracing()
+    obs.tracer.clear()
+    try:
+        got = backends.local_searcher(idx, params, device=cuda)(q)
+        spans = obs.tracer.spans()
+    finally:
+        obs.disable_tracing()
+        obs.tracer.clear()
+    for f in ("ids", "dists", "hops", "n_eval", "dims", "n_resid"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None) and (a is None or (
+            a.dtype == b.dtype and np.array_equal(a, b))), f
+    call, = [s for s in spans if s.name == "search.call"]
+    beams = [s.attrs for s in spans if s.name == "search.beam"
+             and call.t0_ns <= s.t0_ns <= call.t0_ns + call.dur_ns]
+    assert [b["q"] for b in beams] == [333, 333, 333, 1]
+    assert [b["visited_bytes"] for b in beams] == [4 * n_words * b["q"] for b in beams]
+    assert all(b["graph_hops"] == b["hops"] > 0 for b in beams)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_f32_rows_past_2_gib(cuda, metric):
+    """6,000,000 x 96 f32 rows (2.3 GB): lanes on the last 100,000 rows,
+    whose bytes lie past 2^31, score in the f32 FEE kernel as in its plain
+    version and bit for bit in the skip-DMA kernel; the ``descend`` kernel
+    walks upper levels over those rows to the plain version's entries (at
+    least 99%, each a greedy fixed point) and reads each of their rows as
+    the row rule does."""
+    from repro_torch.core import graph as graph_mod
+    from repro_torch.core import search
+    from repro_torch.kernels import descend as descend_kernel
+
+    n, d, seg, tail = 6_000_000, 96, 16, 100_000
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((n, d), generator=g, device=cuda)
+    if metric == "ip":
+        x /= x.norm(dim=1, keepdim=True)
+    assert (n - tail) * d * 4 > 2**31
+    ids = torch.randint(n - tail, n, (3, 512), generator=g, device=cuda).to(torch.int32)
+    qs = x[ids[:, 0].long()] + 0.3 * torch.randn((3, d), generator=g, device=cuda)
+    rows = x[ids.long()]
+    score = ((rows - qs[:, None]) ** 2).sum(-1) if metric == "l2" else -(rows * qs[:, None]).sum(-1)
+    thrs = score.median(1).values
+    _, _, _, alpha, beta, margin = inputs(8, d, seg, metric, 9)
+    fee = [torch.from_numpy(a).to(cuda) for a in (alpha, beta, margin)]
+    mask = torch.rand((3, 512), generator=g, device=cuda) < 0.8
+    kw = dict(seg=seg, metric=metric, lane_mask=mask)
+    got = fee_kernel.fee_distance(x, ids, qs, thrs, *fee, **kw)
+    want = ref.fee_distance_gather_ref(x, ids, qs, thrs, *fee, **kw)
+    compare_fee(got, want, near_threshold(rows, qs, thrs, *fee, seg=seg, metric=metric))
+    for a, b in zip(fee_kernel.fee_distance_skipdma(x, ids, qs, thrs, *fee, **kw), got):
+        assert torch.equal(a, b)
+
+    ups = graph_mod.upper_levels(x[n - tail:], 16, metric, np.random.default_rng(9), n_long=4)
+    ups = [((i + (n - tail)).astype(np.int32), a) for i, a in ups]
+    base = (np.arange(n, dtype=np.int32), np.zeros((n, 1), np.int32))
+    levels = search.DeviceLevels.of(
+        graph_mod.GraphIndex(levels=[base] + ups, entry=int(ups[-1][0][0]), m=16), cuda)
+    lv = levels.ids.long()
+    assert int(lv.min()) >= n - tail
+    assert torch.equal(descend_kernel.decode_rows(x, "f32", None, lv),
+                       search.row_reader(x, "f32")(lv))
+    q = x[torch.randint(n - tail, n, (500,), generator=g, device=cuda)]
+    q = q + 0.1 * torch.randn(q.shape, generator=g, device=cuda)
+    (entries, moves), (want_e, want_m), _ = _descend_both(levels, x, "f32", None, q, metric)
+    # its f32 sums are not torch's: a near tie may walk another way
+    agree = float((entries == want_e).float().mean())
+    assert agree >= 0.99, agree
+    if agree == 1.0:
+        assert torch.equal(moves, want_m)
+    _assert_level_one_fixed_point(levels, search.row_reader(x, "f32"), q, entries, metric)
+    assert int(entries.min()) >= n - tail
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_partitioned_knn_repeats_and_finds_the_exact_lists(cuda, metric):
+    """The partitioned kNN build on the card over 300,000 x 96 clustered
+    rows (147 lists): two builds, and a build of the rows with three axes'
+    signs flipped, give the same lists bit for bit; they hold at least 95%
+    of the exact lists on a 2,000-row sample, nearest first, without self
+    loops or repeats."""
+    from repro_torch.core import graph as graph_mod
+
+    g = torch.Generator(device=cuda).manual_seed(13)
+    n, d = 300_000, 96
+    scale = torch.arange(1, d + 1, device=cuda, dtype=torch.float32).pow(-0.5)
+    centers = torch.randn((256, d), generator=g, device=cuda) * scale
+    x = centers[torch.randint(0, 256, (n,), generator=g, device=cuda)]
+    x = x + 0.5 * torch.randn((n, d), generator=g, device=cuda) * scale
+    if metric == "ip":
+        x /= x.norm(dim=1, keepdim=True)
+    ids = graph_mod._partitioned_knn(x, 32, metric, seed=0)
+    assert torch.equal(graph_mod._partitioned_knn(x, 32, metric, seed=0), ids)
+    flip = x.clone()
+    flip[:, [1, 40, 95]] *= -1
+    assert torch.equal(graph_mod._partitioned_knn(flip, 32, metric, seed=0), ids)
+    assert graph_mod.knn_recall(x, ids, metric, seed=1, n_rows=2_000) >= 0.95
+    assert int(ids.min()) >= 0 and int(ids.max()) < n
+    assert not (ids == torch.arange(n, device=cuda)[:, None]).any()
+    srt = ids.sort(1).values
+    assert not (srt[:, 1:] == srt[:, :-1]).any()
 
 
 FRONTIER_SHAPES = [(1, 20), (4, 20), (8, 16), (16, 20)]   # E*M 20, 80, 128, 320

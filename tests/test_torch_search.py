@@ -631,3 +631,67 @@ def test_collector_pause_nests_and_restores():
         assert not gc.isenabled()
     finally:
         gc.enable()
+
+
+@pytest.mark.parametrize("trace", [False, True])
+@pytest.mark.parametrize("storage", beam_cases.STORAGES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_query_chunks_equal_one_chunk(pair, metric, storage, trace, monkeypatch):
+    """A visited-bitmap budget of 21 queries splits a call of 64 into four
+    chunks (21, 21, 21, 1), searched one after another: ids, distances,
+    counters and the trace equal one chunk's bit for bit; the call's
+    ``search.call`` span holds four ``search.beam`` spans, each with its
+    chunk's bitmap in ``visited_bytes``."""
+    from repro_torch import obs
+    from repro_torch.index import backends
+
+    db, _, port, *_ = pair[metric]
+    params = dataclasses.replace(BASE, storage=storage, trace=trace)
+    cpu = torch.device("cpu")
+    n_q, n_words = len(db.queries), -(-port.n // 32)
+    chunk = (n_q - 1) // 3
+    whole = backends.local_searcher(port, params, device=cpu)
+    assert n_q <= tsearch._VISITED_BYTES // (4 * n_words)       # one chunk
+    want = whole(db.queries)
+    monkeypatch.setattr(tsearch, "_VISITED_BYTES", 4 * n_words * chunk)
+    obs.enable_tracing()
+    obs.tracer.clear()
+    try:
+        got = backends.local_searcher(port, params, device=cpu)(db.queries)
+        spans = obs.tracer.spans()
+    finally:
+        obs.disable_tracing()
+        obs.tracer.clear()
+    for f in ("ids", "dists", "hops", "n_eval", "dims", "n_resid"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None) and (a is None or (
+            a.dtype == b.dtype and np.array_equal(a, b))), f
+    if trace:
+        assert set(got.trace) == set(want.trace)
+        for k in want.trace:
+            assert np.array_equal(got.trace[k], want.trace[k]), k
+    call, = [s for s in spans if s.name == "search.call"]
+    beams = [s.attrs for s in spans if s.name == "search.beam"
+             and call.t0_ns <= s.t0_ns <= call.t0_ns + call.dur_ns]
+    assert [b["q"] for b in beams] == [chunk] * 3 + [n_q - 3 * chunk]
+    assert [b["visited_bytes"] for b in beams] == [4 * n_words * b["q"] for b in beams]
+
+
+def test_empty_call_is_one_chunk(pair):
+    """A call of no queries is one chunk of none: one beam span of no
+    bitmap."""
+    from repro_torch import obs
+    from repro_torch.index import backends
+
+    db, _, port, *_ = pair["l2"]
+    obs.enable_tracing()
+    obs.tracer.clear()
+    try:
+        res = backends.local_searcher(port, BASE, device=torch.device("cpu"))(db.queries[:0])
+        spans = obs.tracer.spans()
+    finally:
+        obs.disable_tracing()
+        obs.tracer.clear()
+    assert res.ids.shape == (0, BASE.k)
+    assert [s.name for s in spans].count("search.call") == 1
+    assert [s.attrs["visited_bytes"] for s in spans if s.name == "search.beam"] == [0]

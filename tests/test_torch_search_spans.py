@@ -109,8 +109,9 @@ def test_beam_hops_match_the_loop(unit, traced, monkeypatch):
     monkeypatch.setattr(search_mod, "_hop_body", counted)
     host, res = _host_ranges(lambda: _search(unit))
     beam = next(s for s in traced.spans() if s.name == "search.beam")
+    n_words = -(-unit[1].n // 32)
     assert beam.attrs == {"q": 40, "hops": len(n_body), "graph_hops": 0,
-                          "frontier_hops": 0}
+                          "frontier_hops": 0, "visited_bytes": 4 * n_words * 40}
     names = Counter(n for n, _, _ in host)
     assert names["search.hop"] == len(n_body) == int(res.hops.max())
     assert names["search.sync"] == len(n_body) + 1
